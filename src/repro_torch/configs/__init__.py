@@ -1,0 +1,37 @@
+"""Config registry of the port: ``--arch <id>`` → ModelConfig.
+
+The port knows the archs whose model family it has ported.  Each module
+exports CONFIG (the published configuration) and smoke() (a reduced
+same-family config for CPU tests), as in the JAX package.
+"""
+from typing import List
+
+from .base import SHAPES, ModelConfig, ShapeConfig
+
+from . import qwen2_7b, smollm_360m
+
+_MODULES = {
+    "qwen2-7b": qwen2_7b,
+    "smollm-360m": smollm_360m,
+}
+
+ARCHS: List[str] = list(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported yet: it comes in a "
+                       f"later slice of the port; ported: {ARCHS}")
+    return _MODULES[name]
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke()
+
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "get_config",
+           "get_smoke_config"]

@@ -1,0 +1,51 @@
+"""Architecture registry of the port: ModelConfig.arch_kind → model module."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+from . import dense
+from .common import P, init_params, resolve_device
+
+_MODULES = {"dense": dense}
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: Any
+    module: Any
+
+    def schema(self) -> Any:
+        return self.module.schema(self.cfg)
+
+    def init(self, seed_or_generator: Union[int, torch.Generator] = 0,
+             device: Union[str, torch.device] = "cuda") -> Any:
+        """Random params on ``device`` from a seed or a generator that lives
+        on that device."""
+        dev = resolve_device(device)
+        if isinstance(seed_or_generator, torch.Generator):
+            gen = seed_or_generator
+        else:
+            gen = torch.Generator(device=dev).manual_seed(seed_or_generator)
+        return init_params(self.schema(), gen, self.cfg.param_dtype, dev)
+
+    def param_count(self) -> int:
+        """Exact parameter count, derived from the schema."""
+        def count(node):
+            if isinstance(node, P):
+                return int(np.prod(node.shape))
+            return sum(count(v) for v in node.values())
+        return count(self.schema())
+
+    def forward(self, params, batch) -> torch.Tensor:
+        return self.module.forward(params, batch, self.cfg)
+
+
+def get_model(cfg) -> Model:
+    if cfg.arch_kind not in _MODULES:
+        raise KeyError(f"arch_kind {cfg.arch_kind!r} is not ported yet: it "
+                       f"comes in a later slice; ported: {sorted(_MODULES)}")
+    return Model(cfg, _MODULES[cfg.arch_kind])

@@ -1,0 +1,187 @@
+"""The port's kernel ops on the CPU (their plain versions) against the JAX
+package's Pallas kernels in interpret mode and its oracles, on the same
+inputs made with numpy from a seed.  The CUDA kernels themselves run only
+on the card: ``chip_smoke.py`` holds them against these plain versions."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref, flash_attention
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import attention_plain
+from repro_torch.kernels.flash_attention import flash_attention as t_flash
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.paged_attention import paged_attention as t_paged
+from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 rounds
+    identically in both)."""
+    return (jnp.asarray(x).astype(dtype),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _qkv(rng, b, sq, h, hkv, d, dtype):
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return [_pair(mk(b, sq, n, d), dtype) for n in (h, hkv, hkv)]
+
+
+# ------------------------------------------------------- flash attention
+@pytest.mark.parametrize("b,sq,h,hkv,d", [
+    (2, 256, 4, 2, 64),
+    (1, 128, 8, 8, 128),
+    (2, 512, 4, 1, 64),      # MQA
+    (1, 384, 6, 2, 128),     # non-power-of-two seq (3 blocks)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax(b, sq, h, hkv, d, dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(np.random.default_rng(7), b, sq, h,
+                                        hkv, d, dtype)
+    out = t_flash(qt, kt, vt, causal=True)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    tol = TOL[dtype]
+    for ref in (flash_attention(qj, kj, vj, True, None, 128, 128, True),
+                attention_ref(qj, kj, vj, causal=True)):
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [64, 200])
+def test_flash_plain_sliding_window(window):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(np.random.default_rng(8), 2, 256, 4,
+                                        2, 64, "float32")
+    out = t_flash(qt, kt, vt, causal=True, sliding_window=window)
+    ref = attention_ref(qj, kj, vj, causal=True, sliding_window=window)
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_plain_edge_masks():
+    """A window of 1 attends to the token itself; a row that sees no key
+    (non-causal, window past the end of k) gives 0, not NaN."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, 4, 32))
+                                .astype(np.float32)) for _ in range(3))
+    k, v = k[:, :, :2], v[:, :, :2]                       # G = 2
+    own = attention_plain(q, k, v, causal=True, sliding_window=1)
+    np.testing.assert_allclose(own.numpy(),
+                               v.repeat_interleave(2, dim=2).numpy(),
+                               atol=1e-6)
+    out = attention_plain(q, k[:, :4], v[:, :4], causal=False,
+                          sliding_window=2)
+    assert torch.isfinite(out).all()
+    assert out[:, 5:].abs().max() == 0 and out[:, :5].abs().max() > 0
+
+
+def test_flash_grad_matches_jax():
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(np.random.default_rng(10), 1, 128, 2,
+                                        2, 64, "float32")
+    inputs = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    t_flash(*inputs, causal=True).sum().backward()
+    gk = jax.grad(lambda q, k, v: jnp.sum(
+        flash_attention(q, k, v, True, None, 64, 64, True)),
+        argnums=(0, 1, 2))(qj, kj, vj)
+    gr = jax.grad(lambda q, k, v: jnp.sum(
+        attention_ref(q, k, v, causal=True)), argnums=(0, 1, 2))(qj, kj, vj)
+    for t, a, r in zip(inputs, gk, gr):
+        np.testing.assert_allclose(_f32(t.grad), _f32(a), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(_f32(t.grad), _f32(r), atol=1e-4,
+                                   rtol=1e-4)
+
+
+# -------------------------------------------------------- paged attention
+def _paged_inputs(rng, b, h, hkv, d, pages, t, pp, dtype):
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    # the engine's layout: a [L, P, T, Hkv, D] pool; the kernel is handed
+    # layer 1 as a strided [P, T, Hkv, D] view
+    pool = rng.standard_normal((2, 2, pages, t, hkv, d)).astype(np.float32)
+    lengths = rng.integers(1, pp * t + 1, size=b).astype(np.int32)
+    lengths[0] = t * max(1, pp // 2)        # an exact page multiple
+    tbl = np.full((b, pp), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, pages)))  # page 0: -1 slots
+    for i, ln in enumerate(lengths):
+        for j in range(-(-int(ln) // t)):
+            tbl[i, j] = free.pop()
+    qj, qt = _pair(q, dtype)
+    pj, pt = _pair(pool, dtype)
+    return qj, qt, pj, pt, tbl, lengths
+
+
+@pytest.mark.parametrize("b,h,hkv,d,pages,t,pp", [
+    (3, 8, 2, 64, 32, 16, 8),
+    (2, 4, 4, 128, 16, 32, 4),
+    (1, 16, 1, 64, 64, 16, 16),   # MQA, long table
+    (4, 28, 4, 128, 48, 16, 10),  # qwen2-7b heads: G = 7
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_matches_jax(b, h, hkv, d, pages, t, pp, dtype):
+    qj, qt, pj, pt, tbl, lengths = _paged_inputs(
+        np.random.default_rng(11), b, h, hkv, d, pages, t, pp, dtype)
+    kt, vt = pt[0, 1], pt[1, 1]
+    assert not kt.is_contiguous() or kt.storage_offset() > 0
+    out = t_paged(qt, kt, vt, torch.from_numpy(tbl),
+                  torch.from_numpy(lengths))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    ref = jax_paged(qj, pj[0, 1], pj[1, 1], jnp.asarray(tbl),
+                    jnp.asarray(lengths), interpret=True)
+    oracle = paged_attention_ref(qj, jnp.moveaxis(pj[0, 1], 2, 0),
+                                 jnp.moveaxis(pj[1, 1], 2, 0),
+                                 jnp.asarray(tbl), jnp.asarray(lengths))
+    tol = TOL[dtype]
+    for r in (ref, oracle):
+        np.testing.assert_allclose(_f32(out), _f32(r), atol=tol, rtol=tol)
+
+
+def test_paged_plain_reads_only_the_length():
+    """Garbage past a sequence's length, and in page 0 (what -1 table
+    entries name), must not reach the output."""
+    qj, qt, pj, pt, tbl, lengths = _paged_inputs(
+        np.random.default_rng(12), 3, 8, 2, 64, 32, 16, 8, "float32")
+    k, v = pt[0, 1].clone(), pt[1, 1].clone()
+    tbl_t, len_t = torch.from_numpy(tbl), torch.from_numpy(lengths)
+    base = paged_attention_plain(qt, k, v, tbl_t, len_t)
+    for i, ln in enumerate(lengths):
+        page, slot = divmod(int(ln), 16)
+        if page < 8 and tbl[i, page] >= 0:
+            k[tbl[i, page], slot:] = 1e4
+            v[tbl[i, page], slot:] = 1e4
+    k[0], v[0] = 1e4, 1e4
+    assert (tbl == -1).any() and 0 not in tbl
+    out = paged_attention_plain(qt, k, v, tbl_t, len_t)
+    np.testing.assert_allclose(out.numpy(), base.numpy(), atol=1e-6)
+
+
+# ------------------------------------------------- the kernels' wrappers
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A launch wrapper takes CUDA tensors only: it never falls back."""
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_fwd(torch.zeros(1, 2, 32), torch.zeros(4, 4, 1, 32),
+                            torch.zeros(4, 4, 1, 32),
+                            torch.zeros(1, 2, dtype=torch.int32),
+                            torch.ones(1, dtype=torch.int32))
+
+
+def test_kernel_sources_build_inside_the_repo():
+    repo = _build.CSRC.parents[2]
+    assert (repo / "conftest.py").exists()
+    assert _build.BUILD_DIR == repo / "build" / "repro_torch"
+    for name in ("flash_attention", "paged_attention"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'int {name}_fwd(' in src and "repro_error_string" in src
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
