@@ -1,14 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py                        # every phase, the result
+  python3 chip_smoke.py zamba2_serve profile   # named phases only, traced
 
 Phases, one line each; a failing phase raises and nothing catches it:
 
 1. card: the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, all started together).
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving path, and the times of kernel, plain version
-   and (for flash) the PyTorch library call, with CUDA events.
+   the shapes of the serving paths (and, for the SSD scan, one chunk, a
+   sequence shorter than the chunk, the smoke sizes, a given initial state
+   and a dt large enough that an unmasked decay overflows; a chunk too
+   large for shared memory must fail to launch), and the times
+   of kernel, plain version and (for flash) the PyTorch library call, with
+   CUDA events.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -16,6 +21,16 @@ Phases, one line each; a failing phase raises and nothing catches it:
    seed 0; a 500-token system prompt and 7 forks of it with 64-token
    suffixes, 32 new tokens each.  The launch counts of both kernels must
    match the path.
+5. zamba2_parity: zamba2-1.2b at full width, 7 layers (one group, its
+   shared-attention site, one more layer), fp32 (TF32 off), B=2, S=256:
+   the logits of ``forward`` (SSD-scan and flash kernels) equal those of
+   ``decode_step`` stepped token by token from ``init_cache`` (no kernel)
+   within 2e-3, and so do their greedy tokens.
+6. zamba2_serve: zamba2-1.2b at full width and depth (38 layers), bf16,
+   random weights from seed 0: ``make_prefill_step`` on 4 prompts of 4096
+   tokens (38 SSD-scan and 6 flash launches per call), then
+   ``make_serve_step`` at batch 8 against ``init_cache(8, 4096)``: 128
+   teacher-forced prompt tokens, then 64 greedy ones (no SSD launch).
 
 It imports nothing of JAX or of the JAX package ``repro``.  The last line
 is ``{"ok": true, "device": {...}}``; before it come the ``kernels`` JSON
@@ -42,9 +57,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the JAX package's own SSD tolerance (tests/test_kernels.py): the kernel
+# sums its chunk products in another order than the plain version, and y
+# grows with the chunk length
+SSD_TOL = 2e-3
 FLASH_SHAPE = dict(b=1, h=28, hkv=4, d=128)       # qwen2-7b prefill
 PAGED_SHAPE = dict(b=8, h=28, hkv=4, d=128, t=16, pages=2048)
+SSD_SHAPE = dict(b=4, s=4096, h=64, p=64, n=64, chunk=128)  # zamba2 prefill
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
+Z_PREFILL_B, Z_PREFILL_S, Z_PREFILLS = 4, 4096, 3
+Z_DECODE_B, Z_CACHE_LEN, Z_PROMPT, Z_NEW = 8, 4096, 128, 64
 
 
 def log(phase: str, **kw) -> None:
@@ -84,8 +106,9 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(out: torch.Tensor, ref: torch.Tensor, dtype, what: str) -> float:
-    tol = TOL[dtype]
+def max_err(out: torch.Tensor, ref: torch.Tensor, dtype, what: str,
+            tol: float = None) -> float:
+    tol = TOL[dtype] if tol is None else tol
     out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{what}: non-finite kernel output")
@@ -104,8 +127,8 @@ def phase_card() -> str:
         count=torch.cuda.device_count(), smi=repr(card),
         torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "paged_attention"],
-                        extra_flags=["-Xptxas", "-v"])
+    logs = _build.build(["flash_attention", "paged_attention",
+                         "mamba2_scan"], extra_flags=["-Xptxas", "-v"])
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
         built=",".join(sorted(logs)) or "cached")
     for name, text in logs.items():
@@ -234,11 +257,103 @@ def phase_kernels(gen: torch.Generator) -> dict:
             "shape": f"B={pb} H={ph} Hkv={phkv} D={pd} T={pt} "
                      f"lengths={serve_lens} bf16"},
     }
+    kernels["mamba2_scan"] = ssd_kernel(gen)
     for kern in kernels.values():
         log("kernels", **{k: kern[k] for k in
                           ("name", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by")})
     return kernels
+
+
+def ssd_kernel(gen: torch.Generator) -> dict:
+    """The SSD-scan kernel against its plain version, in fp32 as the path
+    runs it, and its times at zamba2's prefill shape."""
+    from repro_torch.kernels.mamba2_scan import ssd_scan_plain
+    from repro_torch.kernels.mamba2_scan.kernel import ssd_scan_fwd
+
+    dev = torch.device("cuda")
+
+    def inputs(b, s, h, p, n, *, dt_scale=1.0, a_log=None, s0=False):
+        # the op's prologue in the model's [B, S, H, .] layout; the kernel
+        # reads the [B, H, S, .] transposed views, as on the path
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(rnd(b, s, h)) * dt_scale
+        a_log = 0.5 * rnd(h) if a_log is None else torch.full(
+            (h,), a_log, device=dev)
+        xw = rnd(b, s, h, p) * dt[..., None]
+        dta = dt * -torch.exp(a_log)
+        return (xw.transpose(1, 2), dta.transpose(1, 2), rnd(b, s, n),
+                rnd(b, s, n), rnd(b, h, p, n) if s0 else None)
+
+    sv = SSD_SHAPE
+    cases = {
+        "serving": (dict(b=sv["b"], s=sv["s"], h=sv["h"], p=sv["p"],
+                         n=sv["n"]), sv["chunk"], {}),
+        "one chunk": (dict(b=2, s=128, h=8, p=64, n=64), 128, {}),
+        "S < chunk": (dict(b=2, s=64, h=8, p=64, n=64), 128, {}),
+        "smoke sizes": (dict(b=2, s=64, h=8, p=16, n=16), 16, {}),
+        "given s0": (dict(b=2, s=256, h=8, p=64, n=64), 128, {"s0": True}),
+        # l falls by ~1000 over a chunk: exp(l_i - l_j) above the diagonal
+        # would be inf if it were formed before the mask
+        "large dt": (dict(b=1, s=256, h=8, p=64, n=64), 128,
+                     {"dt_scale": 4.0, "a_log": 1.0}),
+    }
+    errs = []
+    for what, (shape, chunk, extra) in cases.items():
+        xw, dta, b, c, s0 = inputs(**shape, **extra)
+        y, sf = ssd_scan_fwd(xw, dta, b, c, chunk=chunk, s0=s0)
+        torch.cuda.synchronize()
+        yr, sr = ssd_scan_plain(xw, dta, b, c, chunk=chunk, s0=s0)
+        if what == "large dt" and -dta.sum(dim=-1).max() < 89:
+            raise AssertionError("the large-dt case does not overflow")
+        err = max(max_err(y, yr, torch.float32, f"ssd {what} y", SSD_TOL),
+                  max_err(sf, sr, torch.float32, f"ssd {what} state",
+                          SSD_TOL))
+        errs.append(err)
+        log("kernels", kernel="mamba2_scan", case=repr(what), chunk=chunk,
+            **shape, max_abs_err=f"{err:.3e}",
+            max_abs_y=f"{yr.abs().max().item():.3e}")
+        del y, sf, yr, sr
+
+    # a 256-step chunk at P = N = 64 needs more shared memory than a block
+    # may have: the launch returns the CUDA error, and the launches after
+    # it (the timing below) must not see it again
+    xw, dta, b, c, _ = inputs(1, 256, 2, 64, 64)
+    try:
+        ssd_scan_fwd(xw, dta, b, c, chunk=256)
+    except RuntimeError as e:
+        log("kernels", kernel="mamba2_scan", case="'chunk 256'",
+            refused=repr(str(e)))
+    else:
+        raise AssertionError("ssd chunk 256 did not fail to launch")
+
+    b, s, h, p, n, q = (sv[k] for k in ("b", "s", "h", "p", "n", "chunk"))
+    xw, dta, bb, cc, _ = inputs(b, s, h, p, n)
+    ms = cuda_ms(lambda: ssd_scan_fwd(xw, dta, bb, cc, chunk=q))
+    plain = cuda_ms(lambda: ssd_scan_plain(xw, dta, bb, cc, chunk=q), 5)
+    # each input read once and each output written once, fp32.  The
+    # operations, the lesser of two ways to the same result: the chunked
+    # form at Q (C·Bᵀ's lower triangle once per batch row and chunk, since
+    # it is the same for every head; per head M·XW's lower triangle and the
+    # Q×P×N products C·Sᵀ and Σ_j XW_j ⊗ B_j), or the token recurrence
+    # (S ← decay·S + XW_t ⊗ B_t, then C_t·S: 5·P·N per token and head)
+    nbytes = 4 * (2 * xw.numel() + dta.numel() + bb.numel() + cc.numel()
+                  + b * h * p * n)
+    chunked = b * (s // q) * (q * (q + 1) * n
+                              + h * (q * (q + 1) * p + 4 * q * p * n))
+    recurrent = 5 * b * s * h * p * n
+    flops = min(chunked, recurrent)
+    ssd_bound, ssd_by = bound(nbytes, flops, torch.float32)
+    return {
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan/kernel.py:72",
+        "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms,
+        "plain_ms": plain, "bound_ms": ssd_bound, "bound_by": ssd_by,
+        "library_ms": None, "bytes": nbytes, "flops": flops,
+        "flops_chunked": chunked, "flops_recurrent": recurrent,
+        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk={q} fp32"}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -416,27 +531,208 @@ def phase_serve(gen: torch.Generator, profile: bool = False) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+def phase_zamba2_parity(gen: torch.Generator) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mamba2_scan import kernel as sk
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("zamba2-1.2b").replace(n_layers=7,
+                                            compute_dtype="float32",
+                                            attn_impl="pallas")
+    model = get_model(cfg)
+    params = model.init(gen, device="cuda")
+    b, s = 2, 256
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (b, s))).cuda()
+    sk.launches = fk.launches = 0
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        if (sk.launches, fk.launches) != (7, 1):
+            raise AssertionError(f"zamba2 forward launched ssd "
+                                 f"{sk.launches}, flash {fk.launches}")
+        cache = model.init_cache(b, s)
+        steps = []
+        for t in range(s):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": tokens[:, t:t + 1],
+                                "pos": torch.full((b,), t, dtype=torch.int32,
+                                                  device="cuda")})
+            steps.append(logits[:, 0])
+        stepped = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+    if (sk.launches, fk.launches) != (7, 1):
+        raise AssertionError("the stepped decode launched a kernel")
+    err = max_err(full, stepped, torch.float32,
+                  "zamba2 forward vs stepped decode", SSD_TOL)
+    same = (full.argmax(-1) == stepped.argmax(-1)).float().mean().item()
+    if same != 1.0:
+        raise AssertionError(f"zamba2 greedy tokens differ: {same:.4f} "
+                             "of positions agree")
+    log("zamba2_parity", arch="zamba2-1.2b", layers=cfg.n_layers,
+        attn_sites=1, dtype="float32", batch=b, seq=s,
+        max_abs_err=f"{err:.3e}",
+        max_abs_logit=f"{full.abs().max().item():.3e}", tokens_equal=True)
+    del params, cache, full, stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 6
+def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mamba2_scan import kernel as sk
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cfg = get_config("zamba2-1.2b").replace(attn_impl="pallas")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # fp32 init, then the serving copy in the compute dtype
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      model.init(gen, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    rng = np.random.RandomState(0)
+    n_sites = 6
+
+    def batch(b, s):
+        return torch.from_numpy(rng.randint(0, cfg.vocab, (b, s))).cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = fk.launches = 0
+    prefill_ms = []
+    with torch.no_grad():
+        for i in range(Z_PREFILLS):
+            tokens = batch(Z_PREFILL_B, Z_PREFILL_S)
+            t0 = time.perf_counter()
+            nxt = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            if (sk.launches, fk.launches) != (cfg.n_layers * (i + 1),
+                                              n_sites * (i + 1)):
+                raise AssertionError(f"prefill {i}: ssd {sk.launches}, "
+                                     f"flash {fk.launches} launches")
+            if nxt.shape != (Z_PREFILL_B,) or not bool(
+                    ((nxt >= 0) & (nxt < cfg.vocab)).all()):
+                raise AssertionError(f"prefill tokens {nxt.tolist()}")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"mamba2_scan": sk.launches, "flash_attention": fk.launches}
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = batch(Z_DECODE_B, Z_PROMPT)
+    cache = model.init_cache(Z_DECODE_B, Z_CACHE_LEN)
+    step_ms, out = [], []
+    toks = prompts[:, :1]
+    with torch.no_grad():
+        for t in range(Z_PROMPT + Z_NEW - 1):
+            pos = torch.full((Z_DECODE_B,), t, dtype=torch.int32,
+                             device="cuda")
+            t0 = time.perf_counter()
+            nxt, cache = serve(params, cache, {"tokens": toks, "pos": pos})
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t >= Z_PROMPT - 1:
+                out.append(nxt)
+            toks = (prompts[:, t + 1:t + 2] if t + 1 < Z_PROMPT
+                    else nxt[:, None].long())
+    decode_peak = torch.cuda.max_memory_allocated()
+    if sk.launches != launches["mamba2_scan"]:
+        raise AssertionError("decode launched the SSD-scan kernel")
+    gen_toks = torch.stack(out, dim=1)
+    if gen_toks.shape != (Z_DECODE_B, Z_NEW) or not bool(
+            ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+        raise AssertionError(f"decode tokens {gen_toks.tolist()}")
+    for name in ("ssm", "conv"):
+        if not torch.isfinite(cache[name]).all():
+            raise AssertionError(f"non-finite {name} cache")
+    for name in ("k", "v"):
+        if not torch.isfinite(cache["attn"][name]).all():
+            raise AssertionError(f"non-finite attention {name} cache")
+    if cache["attn"]["key_pos"].max().item() != Z_PROMPT + Z_NEW - 2:
+        raise AssertionError("ring cache key positions")
+
+    decode_s = sum(step_ms) / 1e3
+    # tokens/s of the prefills after the first, which carries the warm-up
+    prefill_tps = Z_PREFILL_B * Z_PREFILL_S * (Z_PREFILLS - 1) \
+        / (sum(prefill_ms[1:]) / 1e3)
+    log("zamba2_serve", arch="zamba2-1.2b", layers=cfg.n_layers,
+        attn_sites=n_sites, d_model=cfg.d_model, dtype=cfg.compute_dtype,
+        params=model.param_count(),
+        prefill_batch=Z_PREFILL_B, prefill_seq=Z_PREFILL_S,
+        prefill_ms=[round(x, 3) for x in prefill_ms],
+        prefill_tokens_per_s=f"{prefill_tps:.1f}",
+        decode_batch=Z_DECODE_B, decode_steps=len(step_ms),
+        cache_len=cache["attn"]["k"].shape[2],
+        decode_ms_per_step=f"{np.mean(step_ms):.3f}",
+        decode_ms_median=f"{np.median(step_ms):.3f}",
+        decode_tokens_per_s=f"{Z_DECODE_B * len(step_ms) / decode_s:.1f}",
+        setup_s=f"{setup_s:.3f}", setup_peak_gb=f"{setup_peak / 1e9:.3f}",
+        prefill_peak_gb=f"{prefill_peak / 1e9:.3f}",
+        decode_peak_gb=f"{decode_peak / 1e9:.3f}", launches=launches)
+    if profile:
+        # outside the counted run: one prefill, then 8 decode steps
+        tokens = batch(Z_PREFILL_B, Z_PREFILL_S)
+        with torch.no_grad():
+            profile_window("zamba2 prefill x1",
+                           lambda: prefill(params, {"tokens": tokens}))
+            profile_window("zamba2 decode x8", lambda: [
+                serve(params, cache, {"tokens": toks, "pos": pos})
+                for _ in range(8)])
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this script runs on the "
               "GPU only", file=sys.stderr)
         return 1
     # with no arguments every phase runs and the result lines are printed;
-    # naming phases (kernels, parity, serve, profile) runs just those, to
-    # debug or to profile the serve phase
-    phases = sys.argv[1:] or ["kernels", "parity", "serve"]
+    # naming phases (kernels, parity, serve, zamba2_parity, zamba2_serve,
+    # profile) runs just those, to debug or to trace a serve phase; profile
+    # alone traces the qwen2-7b serve phase
+    phases = sys.argv[1:] or ["kernels", "parity", "serve", "zamba2_parity",
+                              "zamba2_serve"]
+    profile = "profile" in phases
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
     card = phase_card()
+    # each path's launches, counted from 0 just before it is driven
+    launches = {}
     if "kernels" in phases:
-        kernels = phase_kernels(torch.Generator(device="cuda").manual_seed(2))
+        kernels = phase_kernels(gen(2))
     if "parity" in phases:
-        phase_parity(torch.Generator(device="cuda").manual_seed(1))
-    if "serve" in phases or "profile" in phases:
-        launches = phase_serve(torch.Generator(device="cuda").manual_seed(0),
-                               profile="profile" in phases)
+        phase_parity(gen(1))
+    if "serve" in phases or (profile and "zamba2_serve" not in phases):
+        launches["qwen2-7b serve"] = phase_serve(gen(0), profile=profile)
+    if "zamba2_parity" in phases:
+        phase_zamba2_parity(gen(3))
+    if "zamba2_serve" in phases:
+        launches["zamba2-1.2b serve"] = phase_zamba2_serve(gen(0), profile)
     if sys.argv[1:]:
         return 0
     for name, kern in kernels.items():
-        kern["launches"] = launches[name]
+        by_path = {path: counts[name] for path, counts in launches.items()
+                   if name in counts}
+        kern["launches"] = sum(by_path.values())
+        kern["launches_by_path"] = by_path
+        if not kern["launches"]:
+            raise AssertionError(f"{name} was not launched on its path")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,12 @@ from typing import List
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 
-from . import qwen2_7b, smollm_360m
+from . import qwen2_7b, smollm_360m, zamba2_1p2b
 
 _MODULES = {
     "qwen2-7b": qwen2_7b,
     "smollm-360m": smollm_360m,
+    "zamba2-1.2b": zamba2_1p2b,
 }
 
 ARCHS: List[str] = list(_MODULES)

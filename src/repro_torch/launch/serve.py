@@ -30,6 +30,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch)
+    if cfg.arch_kind not in ("dense", "vlm"):
+        raise SystemExit(f"{args.arch}: paged engine serves the dense "
+                         "family; use examples/ for SSM decode")
     model = get_model(cfg)
     params = model.init(0, device=args.device)
     eng = Engine(model, params, EngineConfig(

@@ -42,7 +42,8 @@ class P:
     """Declarative parameter spec (shape, logical axes, init)."""
     shape: Tuple[int, ...]
     axes: Axes                      # logical axis names, len == len(shape)
-    init: str = "normal"            # normal | zeros | ones | scaled
+    init: str = "normal"            # normal | zeros | ones | neg_ones |
+                                    # scaled
     scale: float = 1.0
     dtype: Optional[str] = None     # override the config param_dtype
 
@@ -64,17 +65,44 @@ def stacked(n_layers: int, sub: Dict[str, P]) -> Dict[str, P]:
             for k, p in sub.items()}
 
 
-def init_params(schema: Any, generator: torch.Generator,
+def attn_cache_spec(cfg, batch: int, window: int,
+                    n_layers: Optional[int] = None) -> Dict[str, P]:
+    """Ring-buffer KV cache schema, stacked on layers: k/v [L, B, W, Hkv,
+    D] in the compute dtype, key_pos [L, B, W] int32 (-1 = empty)."""
+    n_layers = cfg.n_layers if n_layers is None else n_layers
+    kv = (n_layers, batch, window, cfg.n_kv_heads, cfg.head_dim_)
+    kv_axes = ("layers", "batch", "window", "kv_heads", None)
+    return {
+        "k": P(kv, kv_axes, init="zeros", dtype=cfg.compute_dtype),
+        "v": P(kv, kv_axes, init="zeros", dtype=cfg.compute_dtype),
+        "key_pos": P((n_layers, batch, window),
+                     ("layers", "batch", "window"), init="neg_ones",
+                     dtype="int32"),
+    }
+
+
+def decode_window(cfg, max_len: int) -> int:
+    """Cache width: the full history, or the sliding window if the config
+    declares one."""
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_params(schema: Any, generator: Optional[torch.Generator],
                 param_dtype: str, device: torch.device) -> Any:
     """Materialize a schema on ``device``, drawing from ``generator`` (which
-    must live on that device).  The JAX package's init rules; the numbers
-    differ from JAX's, so parity tests carry JAX params across instead."""
+    must live on that device; None for a schema with no random init).
+    The JAX package's init rules; the numbers differ from JAX's, so parity
+    tests carry JAX params across instead."""
     def mk(p: P) -> torch.Tensor:
         dt = to_dtype(p.dtype or param_dtype)
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dt, device=device)
+        if p.init == "neg_ones":   # ring-cache key positions: -1 = empty
+            return torch.full(p.shape, -1, dtype=dt, device=device)
         x = torch.randn(p.shape, generator=generator, dtype=dt,
                         device=device)
         if p.init == "scaled":     # fan-in scaled normal

@@ -1,8 +1,9 @@
 """Dense GQA transformer (qwen2 / smollm) in plain PyTorch.
 
 Sequential pre-norm blocks.  The JAX package's `lax.scan` over the stacked
-layer axis is a Python loop here.  Parallel blocks (command-r) and the VLM
-patch embeddings come with their own slices.
+layer axis is a Python loop here.  Decode runs one token against the ring
+KV cache of `cache_spec`, written in place.  Parallel blocks (command-r)
+and the VLM patch embeddings come with their own slices.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Dict
 import torch
 
 from . import layers as L
-from .common import P, padded_vocab, stacked
+from .common import P, attn_cache_spec, decode_window, padded_vocab, stacked
 
 
 def layer_schema(cfg) -> Dict[str, P]:
@@ -55,11 +56,12 @@ def check_supported(cfg) -> None:
                          "(they come with the command-r slice)")
 
 
-def _block(params, x, cfg, *, positions, sliding_window=None):
-    """One sequential pre-norm transformer block."""
-    x = x + L.gqa_block(params, x, cfg, positions=positions,
-                        sliding_window=sliding_window)
-    return x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg)
+def _block(params, x, cfg, *, positions, cache=None, sliding_window=None):
+    """One sequential pre-norm transformer block; returns (x, new_cache)."""
+    attn, new_cache = L.gqa_block(params, x, cfg, positions=positions,
+                                  cache=cache, sliding_window=sliding_window)
+    x = x + attn
+    return x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg), new_cache
 
 
 def _embed_inputs(params, batch, cfg):
@@ -78,7 +80,27 @@ def forward(params, batch, cfg) -> torch.Tensor:
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     for i in range(cfg.n_layers):
-        x = _block(layer(params, i), x, cfg, positions=positions,
-                   sliding_window=cfg.sliding_window)
+        x, _ = _block(layer(params, i), x, cfg, positions=positions,
+                      sliding_window=cfg.sliding_window)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.unembed(params, x, cfg)
+
+
+# ------------------------------------------------------------------ decode
+def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, P]:
+    return attn_cache_spec(cfg, batch, decode_window(cfg, max_len))
+
+
+def decode_step(params, cache, batch, cfg):
+    """One token: batch = {"tokens": [B, 1], "pos": [B]}.  Returns (logits
+    [B, 1, V], cache); the cache's tensors are updated in place."""
+    check_supported(cfg)
+    x = L.embed(params, batch["tokens"], cfg)
+    pos = batch["pos"]
+    for i in range(cfg.n_layers):
+        x, _ = _block(layer(params, i), x, cfg, positions=pos,
+                      cache=(cache["k"][i], cache["v"][i],
+                             cache["key_pos"][i]),
+                      sliding_window=cfg.sliding_window)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.unembed(params, x, cfg), cache

@@ -1,4 +1,6 @@
-"""Shared building blocks of the port's dense models (plain PyTorch).
+"""Shared building blocks of the port's models (plain PyTorch): norms,
+RoPE, attention (full-sequence and against the ring KV cache), MLP and
+embeddings.
 
 Functional, as in the JAX package: params are nested dicts of tensors and
 these functions only compute.  Layouts follow the JAX package: activations
@@ -7,7 +9,7 @@ these functions only compute.  Layouts follow the JAX package: activations
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +99,54 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, d)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, key_pos: torch.Tensor,
+                     qpos: torch.Tensor, *,
+                     sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a ring-buffer cache.
+
+    q: [B, 1, H, D]; k_cache/v_cache: [B, W, Hkv, D]; key_pos: [B, W]
+    (absolute position written to each slot, -1 = empty); qpos: [B].
+    Keys are valid by position, not by slot order, so full caches (W =
+    max_len) and sliding-window caches (W = window) are one code path.
+    GQA is grouped: the cache is never repeated over query heads.  Both
+    products read the cache in its storage dtype (an fp32 copy of the
+    whole cache per call would cost more than the attention itself); the
+    logits are taken to fp32 for the mask and the softmax.
+    """
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).to(k_cache.dtype)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg,
+                          k_cache).float() * (1.0 / np.sqrt(d))
+    mask = (key_pos >= 0) & (key_pos <= qpos[:, None])
+    if sliding_window is not None:
+        mask &= key_pos > qpos[:, None] - sliding_window
+    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    # probs in the cache's dtype: the AV product reads the cache as stored
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                key_pos: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                pos: torch.Tensor):
+    """Write one token's K/V into the ring cache at slot = pos % W.
+
+    k_cache/v_cache: [B, W, Hkv, D]; key_pos: [B, W]; k/v: [B, 1, Hkv, D];
+    pos: [B].  Unlike the JAX package, which returns new arrays, the port
+    writes the three tensors in place (they may be views into a cache
+    stacked on layers) and returns them."""
+    b, w = k_cache.shape[:2]
+    slot = pos.long() % w
+    bidx = torch.arange(b, device=k_cache.device)
+    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    key_pos[bidx, slot] = pos.to(key_pos.dtype)
+    return k_cache, v_cache, key_pos
+
+
 def qkv(params, y: torch.Tensor, cfg, positions: torch.Tensor):
     """Projections of the normed input y [B, S, d] to rotated q
     [B, S, H, D], rotated k and v [B, S, Hkv, D]; positions [B|1, S]."""
@@ -121,14 +171,28 @@ def attn_out(params, attn: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              sliding_window: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm GQA attention block over a full sequence (train/prefill;
-    the cache branch of the JAX block comes with the ring-cache slice)."""
+              cache: Optional[Tuple] = None,
+              sliding_window: Optional[int] = None):
+    """Pre-norm GQA attention block.  Returns (out, new_cache).
+
+    Train/prefill: cache=None, a full sequence at positions [B|1, S].
+    Decode: x is [B, 1, d]; cache = (k_cache, v_cache, key_pos) in the
+    ring layout of `decode_attention`, written in place by `cache_write`;
+    positions [B] are the absolute positions of the tokens written.
+    """
     y = rms_norm(x, params["ln"], cfg.norm_eps)
-    q, k, v = qkv(params, y, cfg, positions)
-    attn = attention(q, k, v, causal=True, sliding_window=sliding_window,
-                     impl=cfg.attn_impl)
-    return attn_out(params, attn, cfg)
+    if cache is None:
+        q, k, v = qkv(params, y, cfg, positions)
+        attn = attention(q, k, v, causal=True, sliding_window=sliding_window,
+                         impl=cfg.attn_impl)
+        return attn_out(params, attn, cfg), None
+    q, k, v = qkv(params, y, cfg, positions[:, None])
+    k_cache, v_cache, key_pos = cache_write(*cache, k, v, positions)
+    dt = to_dtype(cfg.compute_dtype)
+    attn = decode_attention(q, cast(k_cache, dt), cast(v_cache, dt),
+                            key_pos, positions,
+                            sliding_window=sliding_window)
+    return attn_out(params, attn, cfg), (k_cache, v_cache, key_pos)
 
 
 # ------------------------------------------------------------------- MLPs

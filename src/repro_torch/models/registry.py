@@ -7,10 +7,10 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from . import dense
+from . import dense, mamba2
 from .common import P, init_params, resolve_device
 
-_MODULES = {"dense": dense}
+_MODULES = {"dense": dense, "mamba2_hybrid": mamba2}
 
 
 @dataclass(frozen=True)
@@ -42,6 +42,19 @@ class Model:
 
     def forward(self, params, batch) -> torch.Tensor:
         return self.module.forward(params, batch, self.cfg)
+
+    def decode_step(self, params, cache, batch):
+        """One token against ``cache``, which it updates in place."""
+        return self.module.decode_step(params, cache, batch, self.cfg)
+
+    def cache_schema(self, batch: int, max_len: int) -> Any:
+        return self.module.cache_spec(self.cfg, batch, max_len)
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: Union[str, torch.device] = "cuda") -> Any:
+        """An empty decode cache on ``device`` (zeros; key_pos -1)."""
+        return init_params(self.cache_schema(batch, max_len), None,
+                           self.cfg.compute_dtype, resolve_device(device))
 
 
 def get_model(cfg) -> Model:

@@ -1,4 +1,4 @@
-"""Carry parameter trees across from the JAX package.
+"""Carry parameter and decode-cache trees across from the JAX package.
 
 The JAX tree, as numpy (``jax.tree.map(np.asarray, params)``), has the
 port's names, shapes and stacked-layer layout, so it maps one to one.

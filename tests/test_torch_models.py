@@ -20,7 +20,7 @@ from repro_torch.models import get_model
 from repro_torch.models import layers as TL
 from repro_torch.weights import from_numpy
 
-ARCHS = ["qwen2-7b", "smollm-360m"]
+ARCHS = ["qwen2-7b", "smollm-360m", "zamba2-1.2b"]
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 

@@ -165,3 +165,10 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
                 "--max-new", "3", "--arch", "smollm-360m"])
     out = capsys.readouterr().out
     assert "2 requests, 6 tokens" in out and "on cpu" in out
+
+
+def test_serve_launcher_refuses_other_families():
+    """As the JAX launcher does: the paged engine serves the dense family."""
+    with pytest.raises(SystemExit, match="paged engine serves the dense "
+                                         "family"):
+        serve.main(["--device", "cpu", "--arch", "zamba2-1.2b"])
