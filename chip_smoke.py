@@ -6,14 +6,18 @@
 Phases, one line each; a failing phase raises and nothing catches it:
 
 1. card: the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/csrc`` (one nvcc per source, all started together).
+   ``src/repro_torch/csrc`` (one nvcc per source, all started together),
+   with each kernel's registers and spills and its count of tensor-core
+   SASS instructions (HGMMA: wgmma, HMMA: mma.sync) where a disassembler
+   is found.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving paths (and, for the SSD scan, one chunk, a
+   the shapes of the serving paths (flash at both qwen2-7b's and zamba2's
+   prefill shapes, and at head dim 32; for the SSD scan also one chunk, a
    sequence shorter than the chunk, the smoke sizes, a given initial state
    and a dt large enough that an unmasked decay overflows; a chunk too
-   large for shared memory must fail to launch), and the times
-   of kernel, plain version and (for flash) the PyTorch library call, with
-   CUDA events.
+   large for shared memory must fail to launch), and the times of kernel,
+   plain version and (for flash) the PyTorch library call, with CUDA
+   events, kernel and its yardstick timed in turns.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -53,17 +57,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
-# tensor-core rate, fp32 rate outside the tensor cores
+# tensor-core rate, fp32 rate outside the tensor cores, and the rate of
+# fp32-accurate products on the tensor cores: split TF32 (hi·hi + hi·lo +
+# lo·hi) takes three TF32 products at 495 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SPLIT_TF32_FLOPS = 495e12 / 3
+SLEEP_CYCLES = 2_000_000            # ~1.1 ms at the H100's 1.83 GHz boost
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the JAX package's own SSD tolerance (tests/test_kernels.py): the kernel
 # sums its chunk products in another order than the plain version, and y
 # grows with the chunk length
 SSD_TOL = 2e-3
 FLASH_SHAPE = dict(b=1, h=28, hkv=4, d=128)       # qwen2-7b prefill
+Z_FLASH_SHAPE = dict(b=4, s=4096, h=32, hkv=32, d=64)   # zamba2 prefill
 PAGED_SHAPE = dict(b=8, h=28, hkv=4, d=128, t=16, pages=2048)
 SSD_SHAPE = dict(b=4, s=4096, h=64, p=64, n=64, chunk=128)  # zamba2 prefill
+KERNEL_LIBS = ["flash_attention", "paged_attention", "mamba2_scan"]
+PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "chunk_states",
+                "state_pass", "chunk_outputs")
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
 Z_PREFILL_B, Z_PREFILL_S, Z_PREFILLS = 4, 4096, 3
 Z_DECODE_B, Z_CACHE_LEN, Z_PROMPT, Z_NEW = 8, 4096, 128, 64
@@ -82,27 +94,54 @@ def nvidia_smi() -> str:
     return out[torch.cuda.current_device()] if out else ""
 
 
+def timed_call(fn, flush: torch.Tensor) -> tuple:
+    """CUDA events around one call of ``fn``.  The 50 MB L2 is overwritten
+    first, outside the events (the serving path finds a kernel's inputs
+    cold), and the card is then kept busy for ~1 ms while the host enqueues
+    the events and the call, so the host's launch time stays outside."""
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    flush.zero_()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    return start, end
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn``, by CUDA events around each
-    call.  The 50 MB L2 is overwritten before every call, outside the
-    events: the serving path finds a kernel's inputs cold."""
+    """Mean device time of one call of ``fn`` (`timed_call`)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
+    events = [timed_call(fn, flush) for _ in range(iters)]
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
+def cuda_ms_turns(fns: dict, rounds: int = 10, warmup: int = 2) -> dict:
+    """Median device time of one call of each of ``fns``, timed in turns
+    (a, b, b, a, ...) by `timed_call`, so that the functions share the
+    card's state."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    names = list(fns)
+    events = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            events[n].append(timed_call(fns[n], flush))
+    torch.cuda.synchronize()
+    return {n: float(np.median([s.elapsed_time(e) for s, e in ev]))
+            for n, ev in events.items()}
+
+
+def bound(nbytes: float, flops: float, rate: float) -> tuple:
+    """(least time in ms, what bounds it): bytes over the HBM rate or
+    operations over ``rate``, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -127,15 +166,59 @@ def phase_card() -> str:
         count=torch.cuda.device_count(), smi=repr(card),
         torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "paged_attention",
-                         "mamba2_scan"], extra_flags=["-Xptxas", "-v"])
+    logs = _build.build(KERNEL_LIBS, extra_flags=["-Xptxas", "-v"])
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
         built=",".join(sorted(logs)) or "cached")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for name in KERNEL_LIBS:
+        counts = sass_counts(_build.library_path(name))
+        if counts is None:
+            log("build", library=name, sass="not available")
+        for func, (hgmma, hmma) in (counts or {}).items():
+            log("build", library=name, kernel=func, HGMMA=hgmma, HMMA=hmma)
     return card
+
+
+def sass_counts(lib) -> dict:
+    """{kernel: (HGMMA count, HMMA count)} from ``cuobjdump -sass`` of a
+    built library, or None where no cuobjdump is found (the toolkit's, or
+    the copy Triton carries)."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    tools = [shutil.which("cuobjdump")]
+    if CUDA_HOME:
+        tools.append(os.path.join(CUDA_HOME, "bin", "cuobjdump"))
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((x for x in tools if x and os.path.exists(x)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        func, body = part.split("\n", 1)
+        counts[demangle(func.strip())] = (body.count("HGMMA"),
+                                          body.count("HMMA"))
+    return counts
+
+
+def demangle(symbol: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except OSError:
+        return symbol
+    # the kernel's name and template arguments, without its parameters
+    out = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return out.removeprefix("void ").replace(" ", "") or symbol
 
 
 # ---------------------------------------------------------------- phase 2
@@ -149,45 +232,77 @@ def phase_kernels(gen: torch.Generator) -> dict:
         paged_attention_fwd
 
     dev = torch.device("cuda")
-    b, h, hkv, d = (FLASH_SHAPE[k] for k in ("b", "h", "hkv", "d"))
     flash_errs = []
 
-    def qkv(s, dtype):
+    def qkv(b, s, h, hkv, d, dtype):
         # q, k, v as slices of one fused projection output, as strided
         # [B, S, H, D] views (the kernel reads them through their strides)
         fused = torch.randn((b, s, h + 2 * hkv, d), generator=gen,
                             device=dev, dtype=torch.float32).to(dtype)
         return fused[:, :, :h], fused[:, :, h:h + hkv], fused[:, :, h + hkv:]
 
-    cases = [(s, dt, None) for s in (500, 512, 564, 576)
-             for dt in (torch.bfloat16, torch.float32)]
-    cases += [(576, torch.bfloat16, 128), (576, torch.float32, 200)]
-    for s, dt, window in cases:
-        q, k, v = qkv(s, dt)
+    def flash_case(b, s, h, hkv, d, dt, window):
+        q, k, v = qkv(b, s, h, hkv, d, dt)
         out = flash_attention_fwd(q, k, v, causal=True,
                                   sliding_window=window)
         torch.cuda.synchronize()
         ref = attention_plain(q, k, v, causal=True, sliding_window=window)
-        err = max_err(out, ref, dt, f"flash S={s} {dt} window={window}")
+        err = max_err(out, ref, dt, f"flash B={b} S={s} H={h} D={d} {dt} "
+                                    f"window={window}")
         if dt == torch.bfloat16:
             flash_errs.append(err)
-        log("kernels", kernel="flash_attention", S=s, dtype=str(dt),
-            window=window, max_abs_err=f"{err:.3e}")
+        log("kernels", kernel="flash_attention", B=b, S=s, H=h, Hkv=hkv, D=d,
+            dtype=str(dt), window=window, max_abs_err=f"{err:.3e}")
 
-    # timing at the forks' prefill shape (7 of the 8 prefills), bf16
+    fs = FLASH_SHAPE
+    for s in (500, 512, 564, 576):
+        for dt in (torch.bfloat16, torch.float32):
+            flash_case(fs["b"], s, fs["h"], fs["hkv"], fs["d"], dt, None)
+    flash_case(fs["b"], 576, fs["h"], fs["hkv"], fs["d"], torch.bfloat16, 128)
+    flash_case(fs["b"], 576, fs["h"], fs["hkv"], fs["d"], torch.float32, 200)
+    for dt in (torch.bfloat16, torch.float32):          # head dim 32
+        flash_case(2, 300, 4, 2, 32, dt, None)
+    zs = Z_FLASH_SHAPE
+    flash_case(zs["b"], zs["s"], zs["h"], zs["hkv"], zs["d"], torch.bfloat16,
+               None)
+
+    def flash_times(b, s, h, hkv, d, what):
+        """Kernel and library call in turns, plain version alone, at one
+        causal bf16 shape with contiguous inputs; bound from the shape."""
+        q, k, v = (t.contiguous() for t in qkv(b, s, h, hkv, d,
+                                                 torch.bfloat16))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fns = {"kernel": lambda: flash_attention_fwd(q, k, v, causal=True),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+        try:
+            fns["library"]()
+        except TypeError:       # a PyTorch without enable_gqa (< 2.5)
+            del fns["library"]
+        ms = cuda_ms_turns(fns)
+        plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 5)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * d * b * h * s * (s + 1) / 2
+        t_bound, by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
+        del q, k, v, qt, kt, vt
+        return {"shape": f"B={b} S={s} H={h} Hkv={hkv} D={d} causal bf16",
+                "path": what, "ms": ms["kernel"], "kernel_ms": ms["kernel"],
+                "plain_ms": plain, "library_ms": ms.get("library"),
+                "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
+                "flops": flops}
+
+    # timing at the forks' prefill shape (7 of qwen2-7b's 8 prefills) and
+    # at zamba2-1.2b's
     s = SERVE_PROMPT + SERVE_SUFFIX
-    q, k, v = (t.contiguous() for t in qkv(s, torch.bfloat16))
-    f_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
-    f_plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    try:
-        f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    except TypeError:           # a PyTorch without enable_gqa (< 2.5)
-        f_lib = None
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flops = 4 * d * b * h * s * (s + 1) / 2
-    f_bound, f_by = bound(nbytes, flops, torch.bfloat16)
+    flash_shapes = [
+        flash_times(fs["b"], s, fs["h"], fs["hkv"], fs["d"],
+                    "qwen2-7b serve"),
+        flash_times(zs["b"], zs["s"], zs["h"], zs["hkv"], zs["d"],
+                    "zamba2-1.2b serve")]
+    for sh in flash_shapes:
+        log("kernels", kernel="flash_attention", **{
+            k: sh[k] for k in ("path", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by")})
 
     pb, ph, phkv, pd, pt, npages = (PAGED_SHAPE[k] for k in
                                     ("b", "h", "hkv", "d", "t", "pages"))
@@ -236,17 +351,18 @@ def phase_kernels(gen: torch.Generator) -> dict:
     nbytes = (2 * ntok * phkv * pd * 2 + 2 * 2 * pb * ph * pd
               + 4 * args[3].numel() + 4 * pb)
     flops = 4 * pd * ph * ntok
-    p_bound, p_by = bound(nbytes, flops, torch.bfloat16)
+    p_bound, p_by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
 
     kernels = {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:100",
-            "max_abs_err": max(flash_errs), "ms": f_ms, "kernel_ms": f_ms,
-            "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
-            "library_ms": f_lib,
-            "shape": f"B={b} S={s} H={h} Hkv={hkv} D={d} causal bf16"},
+            "max_abs_err": max(flash_errs),
+            **{k: flash_shapes[0][k] for k in (
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")},
+            "shapes": flash_shapes},
         "paged_attention": {
             "name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -316,9 +432,9 @@ def ssd_kernel(gen: torch.Generator) -> dict:
             max_abs_y=f"{yr.abs().max().item():.3e}")
         del y, sf, yr, sr
 
-    # a 256-step chunk at P = N = 64 needs more shared memory than a block
-    # may have: the launch returns the CUDA error, and the launches after
-    # it (the timing below) must not see it again
+    # a 256-step chunk holds G = C·Bᵀ [256, 256] in fp32, more shared
+    # memory than a block may have: the launch returns the CUDA error, and
+    # the launches after it (the timing below) must not see it again
     xw, dta, b, c, _ = inputs(1, 256, 2, 64, 64)
     try:
         ssd_scan_fwd(xw, dta, b, c, chunk=256)
@@ -330,27 +446,34 @@ def ssd_kernel(gen: torch.Generator) -> dict:
 
     b, s, h, p, n, q = (sv[k] for k in ("b", "s", "h", "p", "n", "chunk"))
     xw, dta, bb, cc, _ = inputs(b, s, h, p, n)
-    ms = cuda_ms(lambda: ssd_scan_fwd(xw, dta, bb, cc, chunk=q))
-    plain = cuda_ms(lambda: ssd_scan_plain(xw, dta, bb, cc, chunk=q), 5)
+    ms = cuda_ms_turns({
+        "kernel": lambda: ssd_scan_fwd(xw, dta, bb, cc, chunk=q),
+        "plain": lambda: ssd_scan_plain(xw, dta, bb, cc, chunk=q)}, 6)
     # each input read once and each output written once, fp32.  The
     # operations, the lesser of two ways to the same result: the chunked
     # form at Q (C·Bᵀ's lower triangle once per batch row and chunk, since
     # it is the same for every head; per head M·XW's lower triangle and the
     # Q×P×N products C·Sᵀ and Σ_j XW_j ⊗ B_j), or the token recurrence
-    # (S ← decay·S + XW_t ⊗ B_t, then C_t·S: 5·P·N per token and head)
+    # (S ← decay·S + XW_t ⊗ B_t, then C_t·S: 5·P·N per token and head),
+    # at the rate of fp32-accurate products on the tensor cores
     nbytes = 4 * (2 * xw.numel() + dta.numel() + bb.numel() + cc.numel()
                   + b * h * p * n)
     chunked = b * (s // q) * (q * (q + 1) * n
                               + h * (q * (q + 1) * p + 4 * q * p * n))
     recurrent = 5 * b * s * h * p * n
     flops = min(chunked, recurrent)
-    ssd_bound, ssd_by = bound(nbytes, flops, torch.float32)
+    ssd_bound, ssd_by = bound(nbytes, flops, SPLIT_TF32_FLOPS)
+    log("kernels", kernel="mamba2_scan",
+        bytes_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f}",
+        ops_ms=f"{flops / SPLIT_TF32_FLOPS * 1e3:.5f}",
+        ops_ms_fp32_simt=f"{flops / PEAK_FLOPS[torch.float32] * 1e3:.5f}")
     return {
         "name": "mamba2_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan/kernel.py:72",
-        "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain, "bound_ms": ssd_bound, "bound_by": ssd_by,
+        "max_abs_err": max(errs), "ms": ms["kernel"],
+        "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+        "bound_ms": ssd_bound, "bound_by": ssd_by,
         "library_ms": None, "bytes": nbytes, "flops": flops,
         "flops_chunked": chunked, "flops_recurrent": recurrent,
         "shape": f"B={b} S={s} H={h} P={p} N={n} chunk={q} fp32"}
@@ -416,7 +539,8 @@ def phase_parity(gen: torch.Generator) -> None:
 def profile_window(name: str, fn) -> None:
     """Run ``fn`` under torch.profiler; print the wall time, the device's
     busy time and idle share, and the kernels that took the most device
-    time in the window."""
+    time in the window, with the port's own kernels always among them,
+    each with its share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -436,8 +560,12 @@ def profile_window(name: str, fn) -> None:
         device_busy_ms=f"{busy_ms:.3f}",
         device_idle_share=f"{1 - busy_ms / wall_ms:.4f}",
         device_ops=len(kernels))
-    for kname, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"[profile] {name}: {t:9.3f} ms {n:5d}x {kname[:90]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for i, (kname, (n, t)) in enumerate(ranked):
+        # the twelve costliest kernels, and every kernel of the port's own
+        if i < 12 or any(k in kname for k in PORT_KERNELS):
+            print(f"[profile] {name}: {t:9.3f} ms {n:5d}x "
+                  f"{t / busy_ms:7.2%} {kname[:90]}")
 
 
 def phase_serve(gen: torch.Generator, profile: bool = False) -> dict:

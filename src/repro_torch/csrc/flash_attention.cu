@@ -1,4 +1,5 @@
-// FlashAttention-2 forward for Hopper (sm_90a), fp32 and bf16 inputs.
+// FlashAttention forward for Hopper (sm_90a): bf16 on the tensor cores
+// (wgmma, TMA), fp32 with FMAs.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention_fwd`, body `_fwd_kernel`): causal / sliding-window GQA
@@ -6,54 +7,53 @@
 // -1e30 and the denominator clamped at 1e-30.  Masked entries get weight 0,
 // so a row with no visible key gives 0, never NaN.
 //
-// What bounds it on the H100: at the prefill shapes of the serving path
-// (S ~ 500-600, H = 28, Hkv = 4, D = 128, bf16) the work is ~2.4 GFLOP and
-// ~9.4 MB per layer, so the card's floor is ~2.8 us of memory traffic.
-// This first kernel does its products with fp32 FMAs out of shared memory
-// (no tensor cores), so it is bound by shared-memory bandwidth and FMA
-// issue, far above that floor.  `wgmma`, TMA and warp specialisation are
-// later work.
+// What bounds it on the H100: at qwen2-7b's prefill (S ~ 560, H = 28,
+// Hkv = 4, D = 128) ~2.4 GFLOP and ~9.4 MB per layer, so the floor is
+// ~2.8 us of memory traffic; at zamba2-1.2b's (B = 4, S = 4096, H = 32,
+// D = 64) 275 GFLOP, so the floor is 0.278 ms of bf16 tensor-core work.
+// The bf16 kernel feeds the tensor cores from shared memory filled by TMA;
+// how close it comes to those floors is measured in PERF.md.
 //
-// Design:
-//  * One block per (64-row q tile, head, batch).  The TPU kernel's
-//    sequential kv grid axis becomes a loop inside the block over 32-row kv
-//    tiles; blocks run in parallel with nothing carried between them.
-//  * The kv loop starts at the window's left edge and stops at the causal
-//    diagonal, so fully masked tiles are never loaded.
-//  * GQA: the kv head is h / G, computed in the kernel; K/V are never
-//    repeated.
-//  * q/k/v/o are addressed through their element strides in the model's
-//    [B, S, H, D] layout: no transposed copy is made.
-//  * Tiles are held in shared memory as fp32, rows padded to D+1 floats so
-//    the threads of a warp that read different rows hit different banks.
-//    Each of the 256 threads owns a 4x2 block of the score tile and a
-//    4x(D/16) block of the output accumulator, kept in registers.
+// bf16 design (`flash_bf16`):
+//  * One block per (128-row q tile, head, batch): two warpgroups of 64 q
+//    rows each, held to 128 registers a thread so that two blocks share an
+//    SM and one's softmax runs while the other's products do.  The heaviest
+//    (last) q tiles go first.  The kv loop starts at the window's left
+//    edge and stops at the causal diagonal, so tiles fully above the
+//    diagonal or left of the window are never loaded; only tiles that
+//    cross the diagonal, the window's edge or the end of k are masked.
+//  * The Q tile and a 2-stage ring of 64-row K/V tiles arrive by TMA,
+//    completion counted on mbarriers.  The tensor maps are built per call
+//    on the host from the views' strides, so q/k/v are read in the model's
+//    strided [B, S, H, D] layout (kv head h / G); rows past the end arrive
+//    as zeros.  Thread 0 refills a stage once both warpgroups are done
+//    with it, so the next tile's copy overlaps this tile's products.
+//  * S = Q·Kᵀ and O += P·V are wgmma products with fp32 accumulators.  The
+//    tiles use the 128-byte swizzle (64-byte at D = 32) that the wgmma
+//    descriptors name; Q and K are K-major, V is read N-major with the
+//    transpose bit.  P goes from the S accumulator to bf16 registers as the
+//    A operand of P·V, with no trip through shared memory.
+//  * The online softmax runs on the accumulator fragments in the exp2
+//    domain: each thread holds two rows' entries; row maxima combine over
+//    the quad of lanes that share a row, row sums are reduced once at the
+//    end.
+//
+// fp32 inputs take `flash_fp32`, FMAs out of shared memory: a dtype
+// dispatch inside this library, not a fallback.  Only the fp32 parity
+// checks run it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 32;        // kv rows per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides4 {
   long long b, s, h, d;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -65,58 +65,320 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ------------------------------------------------------------ bf16, wgmma
 template <int D>
-constexpr size_t smem_floats() {
-  return BQ * (D + 1)        // sQ
-         + BK * (D + 1)      // sK
-         + BK * D            // sV
-         + BQ * (BK + 1)     // sP: scores, then probabilities
-         + 3 * BQ;           // running max, denominator, rescale
+struct Bf16Cfg {
+  static constexpr int BQ = 128;                  // q rows per block
+  static constexpr int BK = 64;                   // kv rows per tile
+  static constexpr int THREADS = 256;             // two warpgroups
+  static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int SWE = SWB / 2;             // elements per span
+  static constexpr int NSUB = D / SWE;            // column sub-tiles
+  static constexpr int LAYOUT = SWB == 128 ? 1 : 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
+  static constexpr int STAGES = 2;
+  // 1 KB of slack to align the tiles to the swizzle atom, then the tiles,
+  // then three barriers
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 3 * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 2)
+flash_bf16(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           __nv_bfloat16* __restrict__ o, Strides4 os, int group, int Sq,
+           int Skv, int causal, int window, float sl2) {
+  using C = Bf16Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, SWB = C::SWB, SWE = C::SWE;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  unsigned char* sQ = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* sKV = sQ + C::Q_BYTES;   // stage s: K, then V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      sKV + C::STAGES * 2 * C::KV_BYTES);  // full[0], full[1], q
+  uint64_t* qbar = bars + C::STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = k_lo / BK;
+  const int n_t = max(0, (k_hi + BK - 1) / BK - t_lo);
+
+  const CUtensorMap *mk = &tk, *mv = &tv;
+  auto load_kv = [=](int stage, int t) {
+    unsigned char* dk = sKV + stage * 2 * C::KV_BYTES;
+    unsigned char* dv = dk + C::KV_BYTES;
+    hopper::mbar_expect_tx(bars + stage, 2 * C::KV_BYTES);
+#pragma unroll
+    for (int sub = 0; sub < C::NSUB; ++sub) {
+      hopper::tma_load_4d(dk + sub * BK * SWB, mk, bars + stage, sub * SWE,
+                          hk, t * BK, b);
+      hopper::tma_load_4d(dv + sub * BK * SWB, mv, bars + stage, sub * SWE,
+                          hk, t * BK, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < C::STAGES + 1; ++i) hopper::mbar_init(bars + i, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+    for (int sub = 0; sub < C::NSUB; ++sub)
+      hopper::tma_load_4d(sQ + sub * BQ * SWB, &tq, qbar, sub * SWE, h, q0,
+                          b);
+    for (int s = 0; s < C::STAGES && s < n_t; ++s) load_kv(s, t_lo + s);
+  }
+
+  // this thread's rows of the warpgroup's 64: r and r + 8
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  const int col0 = (lane % 4) * 2;
+  const int wg_first = q0 + wg * 64, wg_last = wg_first + 63;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(qbar, 0);
+  for (int it = 0; it < n_t; ++it) {
+    const int t = t_lo + it, st = it % C::STAGES, k0 = t * BK;
+    const unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
+    const unsigned char* sV = sK + C::KV_BYTES;
+    hopper::mbar_wait(bars + st, (it / C::STAGES) & 1);
+
+    // a tile wholly above this warpgroup's diagonal, or left of its
+    // window, adds nothing to its rows
+    const bool idle = (causal && k0 > wg_last) ||
+                      (window > 0 && k0 + BK - 1 <= wg_first - window);
+    if (!idle) {
+      // ---- S = Q Kᵀ (this warpgroup's 64 rows x BK)
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int sub = kk / (SWE / 16), off = (kk % (SWE / 16)) * 32;
+        const uint64_t da = hopper::make_desc(
+            hopper::smem_addr(sQ + sub * BQ * SWB + wg * 64 * SWB + off), 16,
+            8 * SWB, C::LAYOUT);
+        const uint64_t db = hopper::make_desc(
+            hopper::smem_addr(sK + sub * BK * SWB + off), 16, 8 * SWB,
+            C::LAYOUT);
+        hopper::wgmma_ss<BK>(s, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(s);
+
+      // ---- masks, online softmax in the exp2 domain.  Entry i sits at row
+      // row0 + 8 * ((i / 2) % 2), column k0 + 8 * (i / 4) + col0 + i % 2.
+      const bool masked = k0 + BK > Skv ||
+                          (causal && k0 + BK - 1 > wg_first) ||
+                          (window > 0 && k0 <= wg_last - window);
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = s[i] * sl2;
+        if (masked) {
+          const int qpos = row0 + 8 * ((i / 2) % 2);
+          const int kpos = k0 + 8 * (i / 4) + col0 + i % 2;
+          const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          x = ok ? x : NEG;
+        }
+        s[i] = x;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i / 2) % 2;
+        // a masked entry in a row with nothing visible yet has x == m == NEG
+        const float p = (masked && s[i] == NEG) ? 0.f : exp2f(s[i] - m[r]);
+        s[i] = p;
+        l[r] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+      // ---- P to bf16 A fragments: k-step j covers columns 16j .. 16j + 15
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(s[8 * j + 2 * x], s[8 * j + 2 * x + 1]);
+          pa[j][x] = *reinterpret_cast<const uint32_t*>(&v);
+        }
+
+      // ---- O += P V; V is [BK rows][D] in column sub-tiles of SWE
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        const uint64_t db = hopper::make_desc(
+            hopper::smem_addr(sV + j * 16 * SWB), BK * SWB, 8 * SWB,
+            C::LAYOUT);
+        hopper::wgmma_rs_tb<D>(acc, pa[j], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+    }
+
+    __syncthreads();   // both warpgroups are done with this stage
+    if (tid == 0 && it + C::STAGES < n_t) load_kv(st, t + C::STAGES);
+  }
+
+  // ---- O / l; entry i of acc: row row0 + 8 * ((i / 2) % 2), column
+  // 8 * (i / 4) + col0 + i % 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* ob = o + b * os.b + qi * os.s + h * os.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + col0;
+      ob[c * os.d] = __float2bfloat16(acc[4 * j + 2 * r] * l[r]);
+      ob[(c + 1) * os.d] = __float2bfloat16(acc[4 * j + 2 * r + 1] * l[r]);
+    }
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides4 qs,
-          Strides4 ks, Strides4 vs, Strides4 os, int group, int Sq, int Skv,
-          int causal, int window, float scale) {
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* o, const Strides4& qs, const Strides4& ks,
+                        const Strides4& vs, const Strides4& os, int B, int H,
+                        int Hkv, int Sq, int Skv, int causal, int window,
+                        float scale, int block_q, int block_k,
+                        cudaStream_t stream) {
+  using C = Bf16Cfg<D>;
+  if (block_q != C::BQ || block_k != C::BK) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const Strides4* st[3] = {&qs, &ks, &vs};
+  const int heads[3] = {H, Hkv, Hkv}, seqs[3] = {Sq, Skv, Skv};
+  const int rows[3] = {C::BQ, C::BK, C::BK};
+  for (int i = 0; i < 3; ++i) {
+    if (st[i]->d != 1) return cudaErrorInvalidValue;
+    const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                              static_cast<uint64_t>(heads[i]),
+                              static_cast<uint64_t>(seqs[i]),
+                              static_cast<uint64_t>(B)};
+    uint64_t strides[3] = {static_cast<uint64_t>(st[i]->h) * 2,
+                           static_cast<uint64_t>(st[i]->s) * 2,
+                           static_cast<uint64_t>(st[i]->b) * 2};
+    // a dimension of size 1 may carry any stride in PyTorch; TMA wants a
+    // legal one, and never steps along it
+    for (int j = 0; j < 3; ++j)
+      if (dims[j + 1] == 1) strides[j] = (j ? strides[j - 1] : 2) * dims[j];
+    const uint32_t box[4] = {static_cast<uint32_t>(C::SWE), 1,
+                             static_cast<uint32_t>(rows[i]), 1};
+    if (!hopper::encode_bf16_4d(maps + i, bases[i], dims, strides, box,
+                                C::SWB))
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+  flash_bf16<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), os,
+      H / Hkv, Sq, Skv, causal, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ fp32, FMAs
+// One block per (64-row q tile, head, batch), a loop over 32-row kv tiles.
+// Tiles are held in shared memory as fp32, rows padded to D+1 floats so the
+// threads of a warp that read different rows hit different banks; each of
+// the 256 threads owns a 4x2 block of the score tile and a 4x(D/16) block
+// of the output accumulator.
+constexpr int F_BQ = 64;
+constexpr int F_BK = 32;
+constexpr int F_THREADS = 256;
+
+template <int D>
+constexpr size_t fp32_smem_floats() {
+  return F_BQ * (D + 1)        // sQ
+         + F_BK * (D + 1)      // sK
+         + F_BK * D            // sV
+         + F_BQ * (F_BK + 1)   // sP: scores, then probabilities
+         + 3 * F_BQ;           // running max, denominator, rescale
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS)
+flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, Strides4 qs,
+           Strides4 ks, Strides4 vs, Strides4 os, int group, int Sq, int Skv,
+           int causal, int window, float scale) {
   constexpr int DP = D + 1;
-  constexpr int PP = BK + 1;
+  constexpr int PP = F_BK + 1;
   constexpr int NJ = D / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + BQ * DP;
-  float* sV = sK + BK * DP;
-  float* sP = sV + BK * D;
-  float* sM = sP + BQ * PP;
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
+  float* sK = sQ + F_BQ * DP;
+  float* sV = sK + F_BK * DP;
+  float* sP = sV + F_BK * D;
+  float* sM = sP + F_BQ * PP;
+  float* sL = sM + F_BQ;
+  float* sA = sL + F_BQ;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * F_BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / group;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < F_BQ * D; i += F_THREADS) {
     const int r = i / D, c = i % D, qi = q0 + r;
-    sQ[r * DP + c] = qi < Sq ? to_f(qb[qi * qs.s + c * qs.d]) : 0.f;
+    sQ[r * DP + c] = qi < Sq ? qb[qi * qs.s + c * qs.d] : 0.f;
   }
-  if (tid < BQ) {
+  if (tid < F_BQ) {
     sM[tid] = NEG;
     sL[tid] = 0.f;
   }
 
   // kv range: from the window's left edge (rounded down to a tile) to the
   // causal diagonal of the tile's last row
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int q_last = min(q0 + F_BQ, Sq) - 1;
   const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
   int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_lo = (k_lo / BK) * BK;
+  k_lo = (k_lo / F_BK) * F_BK;
 
   float acc[4][NJ];
 #pragma unroll
@@ -124,13 +386,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += F_BK) {
     __syncthreads();   // the previous tile's sP / sV are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < F_BK * D; i += F_THREADS) {
       const int r = i / D, c = i % D, kj = k0 + r;
       const bool ok = kj < Skv;
-      sK[r * DP + c] = ok ? to_f(kb[kj * ks.s + c * ks.d]) : 0.f;
-      sV[r * D + c] = ok ? to_f(vb[kj * vs.s + c * vs.d]) : 0.f;
+      sK[r * DP + c] = ok ? kb[kj * ks.s + c * ks.d] : 0.f;
+      sV[r * D + c] = ok ? vb[kj * vs.s + c * vs.d] : 0.f;
     }
     __syncthreads();
 
@@ -163,7 +425,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // online softmax: one warp per row, one lane per column
-    for (int r = warp; r < BQ; r += THREADS / 32) {
+    for (int r = warp; r < F_BQ; r += F_THREADS / 32) {
       const float x = sP[r * PP + lane];
       const float m_prev = sM[r];
       const float m_new = fmaxf(m_prev, warp_max(x));
@@ -187,7 +449,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NJ; ++j) acc[i][j] *= a;
     }
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < F_BK; ++c) {
       float pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * PP + c];
@@ -206,51 +468,31 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i, qi = q0 + r;
     if (qi >= Sq) continue;
     const float denom = fmaxf(sL[r], 1e-30f);
-    T* ob = o + b * os.b + qi * os.s + h * os.h;
+    float* ob = o + b * os.b + qi * os.s + h * os.h;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      ob[(tx + 16 * j) * os.d] = from_f<T>(acc[i][j] / denom);
+    for (int j = 0; j < NJ; ++j) ob[(tx + 16 * j) * os.d] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides4& qs, const Strides4& ks,
-                   const Strides4& vs, const Strides4& os, int B, int H,
-                   int Hkv, int Sq, int Skv, int causal, int window,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        void* o, const Strides4& qs, const Strides4& ks,
+                        const Strides4& vs, const Strides4& os, int B, int H,
+                        int Hkv, int Sq, int Skv, int causal, int window,
+                        float scale, int block_q, int block_k,
+                        cudaStream_t stream) {
+  if (block_q != F_BQ || block_k != F_BK) return cudaErrorInvalidValue;
+  const size_t smem = fp32_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os,
+  const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
+  flash_fp32<D><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
       H / Hkv, Sq, Skv, causal, window, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, const Strides4& qs, const Strides4& ks,
-                       const Strides4& vs, const Strides4& os, int B, int H,
-                       int Hkv, int Sq, int Skv, int causal, int window,
-                       float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq, Skv,
-                           causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq, Skv,
-                           causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq, Skv,
-                            causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -262,7 +504,10 @@ const char* repro_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, in the
-// [B, S, H, D] order of each tensor.  window <= 0 means no window.
+// [B, S, H, D] order of each tensor; bf16 views need a unit last stride
+// and 16-byte aligned base and strides (TMA).  window <= 0 means no
+// window.  block_q / block_k are the caller's plan and must be the tiles
+// this library was built with for (dtype, D).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int dtype, int B, int H, int Hkv, int Sq,
                         int Skv, int D, long long qsb, long long qss,
@@ -271,19 +516,24 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long vsb, long long vss, long long vsh,
                         long long vsd, long long osb, long long oss,
                         long long osh, long long osd, int causal, int window,
-                        float scale, void* stream) {
+                        float scale, int block_q, int block_k, void* stream) {
   const Strides4 qs{qsb, qss, qsh, qsd}, ks{ksb, kss, ksh, ksd},
       vs{vsb, vss, vsh, vsd}, os{osb, oss, osh, osd};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq,
-                            Skv, causal, window, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, qs, ks, vs, os, B, H,
-                                    Hkv, Sq, Skv, causal, window, scale, st);
-  else
-    err = cudaErrorInvalidValue;
+#define FLASH_ARGS                                                       \
+  q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq, Skv, causal, window, scale, \
+      block_q, block_k, st
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (D == 32) err = launch_fp32<32>(FLASH_ARGS);
+    if (D == 64) err = launch_fp32<64>(FLASH_ARGS);
+    if (D == 128) err = launch_fp32<128>(FLASH_ARGS);
+  } else if (dtype == 1) {
+    if (D == 32) err = launch_bf16<32>(FLASH_ARGS);
+    if (D == 64) err = launch_bf16<64>(FLASH_ARGS);
+    if (D == 128) err = launch_bf16<128>(FLASH_ARGS);
+  }
+#undef FLASH_ARGS
   return static_cast<int>(err);
 }
 

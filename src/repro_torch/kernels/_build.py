@@ -7,7 +7,10 @@ compiled on its own, at first use, by
          -Xcompiler -fPIC -o build/repro_torch/<name>.so <name>.cu
 
 into ``build/repro_torch/`` at the repository root (git-ignored).  A
-library is rebuilt when its source is newer.  Nothing is built from outside
+library is rebuilt when its source, or any shared header ``csrc/*.cuh``
+(Hopper's TMA, mbarrier and wgmma wrappers), is newer.  A tensor map for
+TMA is encoded through the runtime's ``cudaGetDriverEntryPoint``, so the
+libraries link only the CUDA runtime.  Nothing is built from outside
 the repository, and the sources include no PyTorch header, so a build takes
 seconds.  Every C entry point returns ``cudaGetLastError()``; `check`
 raises on a nonzero code.
@@ -39,9 +42,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.so"
 
 
+def sources(name: str) -> list:
+    """What library ``name`` is built from: its ``.cu`` and the shared
+    headers."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def _stale(name: str) -> bool:
-    src, lib = CSRC / f"{name}.cu", library_path(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    lib = library_path(name)
+    return not lib.exists() or lib.stat().st_mtime < max(
+        src.stat().st_mtime for src in sources(name))
 
 
 def build(names: Iterable[str], extra_flags: Iterable[str] = ()

@@ -2,6 +2,8 @@
 package's Pallas kernels in interpret mode and its oracles, on the same
 inputs made with numpy from a seed.  The CUDA kernels themselves run only
 on the card: ``chip_smoke.py`` holds them against these plain versions."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,10 @@ from repro.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as t_flash
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.kernel import plan as flash_plan
+from repro_torch.kernels.flash_attention.kernel import tma_view_problem
 from repro_torch.kernels.paged_attention import paged_attention as t_paged
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
@@ -181,7 +186,89 @@ def test_kernel_sources_build_inside_the_repo():
     repo = _build.CSRC.parents[2]
     assert (repo / "conftest.py").exists()
     assert _build.BUILD_DIR == repo / "build" / "repro_torch"
-    for name in ("flash_attention", "paged_attention"):
+    headers = sorted(_build.CSRC.glob("*.cuh"))
+    assert [h.name for h in headers] == ["hopper.cuh"]
+    for name, entry in (("flash_attention", "flash_attention_fwd"),
+                        ("paged_attention", "paged_attention_fwd"),
+                        ("mamba2_scan", "ssd_scan_fwd")):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert f'int {name}_fwd(' in src and "repro_error_string" in src
+        assert f'int {entry}(' in src and "repro_error_string" in src
+        assert _build.sources(name) == [_build.CSRC / f"{name}.cu",
+                                        *headers]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the header is TMA and wgmma for the flash kernel; nothing links
+    # libcuda: the tensor map's encoder comes from the runtime
+    hdr = headers[0].read_text()
+    assert "cudaGetDriverEntryPoint" in hdr and "wgmma.mma_async" in hdr
+    assert '#include "hopper.cuh"' in (
+        _build.CSRC / "flash_attention.cu").read_text()
+    assert not any("cuda" in f for f in _build.NVCC_FLAGS if f[:2] == "-l")
+
+
+def test_a_library_is_stale_when_its_source_or_a_header_is_newer(
+        tmp_path, monkeypatch):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    cu, hdr, lib = csrc / "k.cu", csrc / "shared.cuh", build / "k.so"
+    for f, when in ((cu, 100), (hdr, 100), (lib, 200)):
+        f.write_text("")
+        os.utime(f, (when, when))
+    assert not _build._stale("k")
+    os.utime(hdr, (300, 300))
+    assert _build._stale("k")            # a shared header changed
+    os.utime(lib, (400, 400))
+    os.utime(cu, (500, 500))
+    assert _build._stale("k")            # its own source changed
+    lib.unlink()
+    assert _build._stale("k")            # never built
+
+
+@pytest.mark.parametrize("dtype,b,sq,h,d,want", [
+    (torch.bfloat16, 1, 564, 28, 128, (128, 64, (5, 28, 1))),   # qwen2
+    (torch.bfloat16, 4, 4096, 32, 64, (128, 64, (32, 32, 4))),   # zamba2
+    (torch.bfloat16, 2, 300, 4, 32, (128, 64, (3, 4, 2))),
+    (torch.float32, 1, 564, 28, 128, (64, 32, (9, 28, 1))),
+])
+def test_flash_plan_tiles_and_grid(dtype, b, sq, h, d, want):
+    assert tuple(flash_plan(dtype, b, sq, h, d)) == want
+    # the library is built for these tiles and refuses others
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "BQ = 128" in src and "BK = 64" in src
+    assert "F_BQ = 64" in src and "F_BK = 32" in src
+
+
+def _tma_problem(t: torch.Tensor):
+    return tma_view_problem(t.shape, t.stride(), t.element_size(),
+                            t.data_ptr())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "zamba2-1.2b"])
+def test_tma_accepts_the_models_views(arch):
+    """q, k, v as the model makes them (rotated, contiguous) and as slices
+    of one fused projection, at the arch's head counts."""
+    cfg = get_config(arch)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    fused = torch.zeros((2, 37, h + 2 * hkv, d), dtype=torch.bfloat16)
+    views = [fused[:, :, :h], fused[:, :, h:h + hkv],
+             fused[:, :, h + hkv:],
+             torch.zeros((1, 37, h, d), dtype=torch.bfloat16),
+             torch.zeros((2, 37, hkv, d), dtype=torch.bfloat16)]
+    assert [_tma_problem(v) for v in views] == [None] * 5
+
+
+def test_tma_refuses_views_it_cannot_read():
+    x = torch.zeros((2, 16, 8, 64), dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 16 * 8 * 64 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + x.numel()].view(x.shape)          # 2-byte offset
+    assert "aligned" in _tma_problem(shifted)
+    assert "last stride" in _tma_problem(x[..., ::2])
+    assert "last stride" in _tma_problem(x.transpose(2, 3))
+    odd = torch.zeros((2, 16, 8, 60), dtype=torch.bfloat16)[:, :, :, :56]
+    assert "multiple of 16" in _tma_problem(odd)            # 120-byte rows
+    # a size-1 dimension's stride is never stepped, so it does not count
+    assert _tma_problem(x[:1, :, :1].expand(1, 16, 1, 64)) is None
+    assert _tma_problem(torch.zeros((1, 4, 1, 32), dtype=torch.bfloat16)
+                        .as_strided((1, 4, 1, 32), (7, 32, 3, 1))) is None

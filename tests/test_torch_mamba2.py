@@ -23,6 +23,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba2_scan import (ssd_recurrent_ref, ssd_scan,
                                              ssd_scan_plain)
+from repro_torch.kernels.mamba2_scan.kernel import plan as ssd_plan
 from repro_torch.kernels.mamba2_scan.kernel import ssd_scan_fwd
 from repro_torch.models import get_model
 from repro_torch.models import layers as TL
@@ -156,6 +157,43 @@ def test_ssd_kernel_wrapper_refuses_cpu_tensors():
     src = (_build.CSRC / "mamba2_scan.cu").read_text()
     assert "int ssd_scan_fwd(" in src and "repro_error_string" in src
     assert "src/repro/kernels/mamba2_scan/kernel.py" in src
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,tile,nc", [
+    (4, 64, 4096, 64, 64, 128, 64, 32),     # zamba2-1.2b prefill
+    (2, 8, 64, 16, 16, 16, 16, 4),          # smoke sizes
+    (2, 8, 64, 64, 64, 128, 64, 1),         # S < chunk: one chunk of S
+    (1, 3, 200, 40, 24, 100, 64, 2),        # ragged widths, padded
+    (1, 2, 96, 32, 8, 32, 32, 3),
+])
+def test_ssd_plan_sizes_the_scratch(b, h, s, p, n, chunk, tile, nc):
+    pl = ssd_plan(b, h, s, p, n, chunk)
+    assert (pl.chunk, pl.n_chunks, pl.tile) == (min(chunk, s), nc, tile)
+    assert pl.states_shape == (b, h, nc, p, n)
+    assert pl.decay_shape == (b, h, nc)
+    assert pl.scratch_bytes == 4 * (b * h * nc * p * n + b * h * nc)
+    hb = pl.heads_per_block
+    assert 1 <= hb <= h and pl.grid == (nc, b, -(-h // hb))
+
+
+def test_ssd_plan_of_the_serving_shape():
+    """B·H·C·P·N fp32 chunk states: 134 MB at zamba2's prefill, and 1024
+    blocks (chunk, batch, group of 8 heads), against 256 (batch, head)
+    blocks of the sequential design."""
+    pl = ssd_plan(4, 64, 4096, 64, 64, 128)
+    assert pl.scratch_bytes == 134_217_728 + 4 * 4 * 64 * 32
+    assert int(np.prod(pl.grid)) == 1024
+    assert int(np.prod(ssd_plan(1, 64, 4096, 64, 64, 128).grid)) == 256
+
+
+@pytest.mark.parametrize("s,p,n,chunk,match", [
+    (100, 64, 64, 64, "multiple"),
+    (128, 128, 64, 64, "widths"),
+    (128, 64, 96, 64, "widths"),
+])
+def test_ssd_plan_refuses(s, p, n, chunk, match):
+    with pytest.raises(ValueError, match=match):
+        ssd_plan(1, 2, s, p, n, chunk)
 
 
 # ------------------------------------------------------------ Mamba2 block
