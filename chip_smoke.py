@@ -12,12 +12,17 @@ Phases, one line each; a failing phase raises and nothing catches it:
    is found.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the serving paths (flash at both qwen2-7b's and zamba2's
-   prefill shapes, and at head dim 32; for the SSD scan also one chunk, a
+   prefill shapes, and at head dim 32; paged at bf16 and fp32, head dims
+   32/64/128, 1/7/8/32 query heads per kv head and 8/16/64-token pages,
+   a batch whose table leaves every span but the first empty, and 33
+   heads per kv head and a pool view that 16-byte copies cannot read,
+   which must raise; for the SSD scan also one chunk, a
    sequence shorter than the chunk, the smoke sizes, a given initial state
    and a dt large enough that an unmasked decay overflows; a chunk too
    large for shared memory must fail to launch), and the times of kernel,
    plain version and (for flash) the PyTorch library call, with CUDA
-   events, kernel and its yardstick timed in turns.
+   events, kernel and its yardstick timed in turns; paged also with the
+   serve run's shared-prefix table.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -36,7 +41,9 @@ Phases, one line each; a failing phase raises and nothing catches it:
    ``make_serve_step`` at batch 8 against ``init_cache(8, 4096)``: 128
    teacher-forced prompt tokens, then 64 greedy ones (no SSD launch).
 
-It imports nothing of JAX or of the JAX package ``repro``.  The last line
+Run it from the root of a checkout: it imports ``src/`` of the working
+directory.  It imports nothing of JAX or of the JAX package ``repro``.
+The last line
 is ``{"ok": true, "device": {...}}``; before it come the ``kernels`` JSON
 line and the card's ``nvidia-smi`` name and power limit.  Exits nonzero,
 with no result, where torch sees no CUDA card.
@@ -53,8 +60,9 @@ import time
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# the port of the checkout it is run from: its root is the working
+# directory (so scripts/chip_ab.py can run this script over another tree)
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # tensor-core rate, fp32 rate outside the tensor cores, and the rate of
@@ -74,8 +82,8 @@ Z_FLASH_SHAPE = dict(b=4, s=4096, h=32, hkv=32, d=64)   # zamba2 prefill
 PAGED_SHAPE = dict(b=8, h=28, hkv=4, d=128, t=16, pages=2048)
 SSD_SHAPE = dict(b=4, s=4096, h=64, p=64, n=64, chunk=128)  # zamba2 prefill
 KERNEL_LIBS = ["flash_attention", "paged_attention", "mamba2_scan"]
-PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "chunk_states",
-                "state_pass", "chunk_outputs")
+PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "paged_merge",
+                "chunk_states", "state_pass", "chunk_outputs")
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
 Z_PREFILL_B, Z_PREFILL_S, Z_PREFILLS = 4, 4096, 3
 Z_DECODE_B, Z_CACHE_LEN, Z_PROMPT, Z_NEW = 8, 4096, 128, 64
@@ -135,6 +143,20 @@ def cuda_ms_turns(fns: dict, rounds: int = 10, warmup: int = 2) -> dict:
     torch.cuda.synchronize()
     return {n: float(np.median([s.elapsed_time(e) for s, e in ev]))
             for n, ev in events.items()}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Mean host time of one call of ``fn``, in us: the calls are enqueued
+    behind ~45 ms of device sleep, so no call waits for the card.  What
+    the host pays per call on a host-bound step."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40 * SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def bound(nbytes: float, flops: float, rate: float) -> tuple:
@@ -227,9 +249,6 @@ def phase_kernels(gen: torch.Generator) -> dict:
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_fwd
-    from repro_torch.kernels.paged_attention import paged_attention_plain
-    from repro_torch.kernels.paged_attention.kernel import \
-        paged_attention_fwd
 
     dev = torch.device("cuda")
     flash_errs = []
@@ -304,55 +323,6 @@ def phase_kernels(gen: torch.Generator) -> dict:
             k: sh[k] for k in ("path", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by")})
 
-    pb, ph, phkv, pd, pt, npages = (PAGED_SHAPE[k] for k in
-                                    ("b", "h", "hkv", "d", "t", "pages"))
-    paged_errs = []
-
-    def paged_inputs(lengths, dtype):
-        pool = torch.randn((2, 2, npages, pt, phkv, pd), generator=gen,
-                           device=dev, dtype=torch.float32).to(dtype)
-        q = torch.randn((pb, ph, pd), generator=gen, device=dev,
-                        dtype=torch.float32).to(dtype)
-        pp = -(-max(lengths) // pt) + 1           # one unused -1 column
-        tbl = torch.full((pb, pp), -1, dtype=torch.int32)
-        free = torch.randperm(npages - 1, generator=torch.Generator()
-                              .manual_seed(0)) + 1
-        used = 0
-        for i, ln in enumerate(lengths):
-            n = -(-ln // pt)
-            tbl[i, :n] = free[used:used + n].to(torch.int32)
-            used += n
-        lens = torch.tensor(lengths, dtype=torch.int32)
-        # layer 1 of a [L, P, T, Hkv, D] pool: a strided view
-        return q, pool[0, 1], pool[1, 1], tbl.to(dev), lens.to(dev)
-
-    mixed = [1, 16, 17, 255, 256, 511, 592, 600]   # incl. page multiples
-    for dt in (torch.bfloat16, torch.float32):
-        args = paged_inputs(mixed, dt)
-        out = paged_attention_fwd(*args)
-        torch.cuda.synchronize()
-        err = max_err(out, paged_attention_plain(*args), dt,
-                      f"paged {dt}")
-        if dt == torch.bfloat16:
-            paged_errs.append(err)
-        log("kernels", kernel="paged_attention", lengths=mixed,
-            dtype=str(dt), max_abs_err=f"{err:.3e}")
-
-    # timing at a mid-run decode step of the serve phase: the base request
-    # and 7 forks, 15 tokens in
-    serve_lens = [SERVE_PROMPT + 16] + [s + 16] * SERVE_FORKS
-    args = paged_inputs(serve_lens, torch.bfloat16)
-    err = max_err(paged_attention_fwd(*args), paged_attention_plain(*args),
-                  torch.bfloat16, "paged serve lengths")
-    paged_errs.append(err)
-    p_ms = cuda_ms(lambda: paged_attention_fwd(*args))
-    p_plain = cuda_ms(lambda: paged_attention_plain(*args), 5)
-    ntok = sum(serve_lens)
-    nbytes = (2 * ntok * phkv * pd * 2 + 2 * 2 * pb * ph * pd
-              + 4 * args[3].numel() + 4 * pb)
-    flops = 4 * pd * ph * ntok
-    p_bound, p_by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
-
     kernels = {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -363,22 +333,165 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")},
             "shapes": flash_shapes},
-        "paged_attention": {
-            "name": "paged_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
-            "max_abs_err": max(paged_errs), "ms": p_ms, "kernel_ms": p_ms,
-            "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
-            "library_ms": None,
-            "shape": f"B={pb} H={ph} Hkv={phkv} D={pd} T={pt} "
-                     f"lengths={serve_lens} bf16"},
     }
+    kernels["paged_attention"] = paged_kernel(gen)
     kernels["mamba2_scan"] = ssd_kernel(gen)
     for kern in kernels.values():
         log("kernels", **{k: kern[k] for k in
                           ("name", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by")})
     return kernels
+
+
+def paged_kernel(gen: torch.Generator) -> dict:
+    """The paged decode-attention kernel against its plain version at every
+    dtype, head dim 32/64/128, 1/7/8/32 query heads per kv head and
+    8/16/64 token pages, at lengths around page and tile edges; a batch
+    that leaves every span of the table but the first empty (with a length
+    of 0); a group the kernel does not take and a pool it cannot read by
+    16-byte copies (both must raise); and its times at a
+    mid-run decode step of the qwen2-7b serve phase, with a table of
+    scattered pages and with the serve run's own shape of table (the
+    system prompt's pages shared by all 8 sequences)."""
+    import itertools
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_fwd
+
+    dev = torch.device("cuda")
+    sv = PAGED_SHAPE
+
+    def inputs(lengths, dtype, *, h=sv["h"], hkv=sv["hkv"], d=sv["d"],
+               t=sv["t"], pages=None, shared=0, extra_cols=1):
+        """q and a table of distinct random pages (-1 past each length,
+        ``extra_cols`` unused columns); the first ``shared`` columns of
+        every row name sequence 0's pages, as prefix forks do.  The pools
+        are layer 1 of a [L, P, T, Hkv, D] pool, a strided view."""
+        need = sum(-(-ln // t) for ln in lengths)
+        pages = pages or need + 64
+        pool = torch.randn((2, 2, pages, t, hkv, d), generator=gen,
+                           device=dev, dtype=torch.float32).to(dtype)
+        q = torch.randn((len(lengths), h, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype)
+        pp = -(-max(lengths) // t) + extra_cols
+        tbl = torch.full((len(lengths), pp), -1, dtype=torch.int32)
+        free = torch.randperm(pages - 1, generator=torch.Generator()
+                              .manual_seed(0)) + 1
+        used = 0
+        for i, ln in enumerate(lengths):
+            n = -(-ln // t)
+            tbl[i, :n] = free[used:used + n].to(torch.int32)
+            used += n
+        tbl[:, :shared] = tbl[0, :shared]
+        lens = torch.tensor(lengths, dtype=torch.int32)
+        return q, pool[0, 1], pool[1, 1], tbl.to(dev), lens.to(dev)
+
+    errs = {torch.bfloat16: [], torch.float32: []}
+
+    def check(args, dtype, what):
+        out = paged_attention_fwd(*args)
+        torch.cuda.synchronize()
+        err = max_err(out, paged_attention_plain(*args), dtype,
+                      f"paged {what} {dtype}")
+        errs[dtype].append(err)
+        return err
+
+    mixed = [1, 16, 17, 255, 256, 511, 592, 600]   # page and tile edges
+    for dt, d, g, t in itertools.product((torch.bfloat16, torch.float32),
+                                         (32, 64, 128), (1, 7, 8, 32),
+                                         (8, 16, 64)):
+        err = check(inputs(mixed, dt, h=g * sv["hkv"], d=d, t=t), dt,
+                    f"D={d} G={g} T={t}")
+        log("kernels", kernel="paged_attention", dtype=str(dt), D=d, G=g,
+            T=t, lengths=mixed, max_abs_err=f"{err:.3e}")
+    # 16-token pages, 37 columns: 10 spans of 64 tokens, all of these in
+    # the first; a length of 0 must give a row of zeros
+    short = [0, 1, 16, 17, 40, 63, 64, 5]
+    for dt in (torch.bfloat16, torch.float32):
+        args = inputs(short, dt, extra_cols=37 - 4)
+        err = check(args, dt, "first span only")
+        if paged_attention_fwd(*args)[0].abs().max().item() != 0:
+            raise AssertionError("paged: a length of 0 gave a nonzero row")
+        log("kernels", kernel="paged_attention", dtype=str(dt),
+            case="'first span only'", lengths=short, table_cols=37,
+            max_abs_err=f"{err:.3e}")
+    # 33 query heads per kv head: refused before any launch, and the
+    # launches after it run clean
+    try:
+        paged_attention_fwd(*inputs([5, 9], torch.bfloat16, h=33, hkv=1))
+    except ValueError as e:
+        log("kernels", kernel="paged_attention", case="'G=33'",
+            refused=repr(str(e)))
+    else:
+        raise AssertionError("paged: 33 heads per kv head did not raise")
+    # pool rows of D + 1 elements, which 16-byte copies cannot read: the
+    # call is refused before any launch (this kernel) or agrees with the
+    # plain version (a kernel of scalar loads, as a parent tree's under
+    # scripts/chip_ab.py), never a wrong answer; the launches after it
+    # run clean
+    q, k, v, tbl, lens = inputs([5, 9], torch.bfloat16, d=sv["d"] + 1)
+    args = (q[..., :-1], k[..., :-1], v[..., :-1], tbl, lens)
+    try:
+        err = check(args, torch.bfloat16, "unaligned pool")
+    except RuntimeError as e:
+        if "misaligned" not in str(e):
+            raise
+        log("kernels", kernel="paged_attention", case="'unaligned pool'",
+            refused=repr(str(e)))
+    else:
+        log("kernels", kernel="paged_attention", case="'unaligned pool'",
+            refused=None, max_abs_err=f"{err:.3e}")
+
+    # a mid-run decode step of the serve phase: the base request and 7
+    # forks, 15 tokens in; pages scattered over a 2048-page pool, then the
+    # serve run's table (31 system-prompt pages shared by all 8 rows, each
+    # fork's copy-on-write page and suffix its own)
+    lens = [SERVE_PROMPT + 16] + [SERVE_PROMPT + SERVE_SUFFIX + 16] \
+        * SERVE_FORKS
+    n_shared = SERVE_PROMPT // sv["t"]
+    row = 2 * sv["hkv"] * sv["d"] * 2        # K and V bytes of one token
+
+    def bytes_of(ntok):                       # K/V once, q, out, table, lens
+        return (ntok * row + 2 * 2 * len(lens) * sv["h"] * sv["d"]
+                + 4 * len(lens) * (-(-max(lens) // sv["t"]) + 1)
+                + 4 * len(lens))
+
+    flops = 4 * sv["d"] * sv["h"] * sum(lens)
+    timings = {}
+    for what, shared in (("serve", 0), ("shared", n_shared)):
+        args = inputs(lens, torch.bfloat16, pages=sv["pages"], shared=shared)
+        err = check(args, torch.bfloat16, f"{what} lengths")
+        ms = cuda_ms_turns({
+            "kernel": lambda: paged_attention_fwd(*args),
+            "plain": lambda: paged_attention_plain(*args)})
+        t_bound, by = bound(bytes_of(sum(lens)), flops,
+                            PEAK_FLOPS[torch.bfloat16])
+        unique = sum(lens) - (len(lens) - 1) * n_shared * sv["t"] \
+            if shared else sum(lens)
+        t_unique, _ = bound(bytes_of(unique), flops,
+                            PEAK_FLOPS[torch.bfloat16])
+        host = host_us(lambda: paged_attention_fwd(*args))
+        timings[what] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                         "bound_ms": t_bound, "bound_by": by,
+                         "bound_ms_unique_pages": t_unique,
+                         "unique_tokens": unique, "host_us": host}
+        log("kernels", kernel="paged_attention", timing=what,
+            ms=f"{ms['kernel']:.5f}", plain_ms=f"{ms['plain']:.5f}",
+            bound_ms=f"{t_bound:.7f}", bound_ms_unique=f"{t_unique:.7f}",
+            host_us=f"{host:.3f}", max_abs_err=f"{err:.3e}")
+    sv_t = timings["serve"]
+    return {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
+        "max_abs_err": max(errs[torch.bfloat16]),
+        "max_abs_err_fp32": max(errs[torch.float32]),
+        "ms": sv_t["ms"], "kernel_ms": sv_t["ms"],
+        "plain_ms": sv_t["plain_ms"], "bound_ms": sv_t["bound_ms"],
+        "bound_by": sv_t["bound_by"], "library_ms": None,
+        "shared_prefix": timings["shared"],
+        "shape": f"B={len(lens)} H={sv['h']} Hkv={sv['hkv']} D={sv['d']} "
+                 f"T={sv['t']} lengths={lens} bf16"}
 
 
 def ssd_kernel(gen: torch.Generator) -> dict:

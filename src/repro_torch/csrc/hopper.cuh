@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves, and the host-side encoding of a TMA tensor map.
+// 16-byte cp.async copies, ldmatrix and the bf16 mma.sync, programmatic
+// dependent launch, mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma instructions themselves, and the host-side
+// encoding of a TMA tensor map.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, a CUDA driver API
 // function, reached through the runtime's cudaGetDriverEntryPoint: the
@@ -19,6 +21,74 @@ namespace hopper {
 // ------------------------------------------------------------ device side
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, cached in L2 only; with `ok`
+// false the 16 bytes are zero-filled and nothing is read
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] · B[16 x 8], bf16 in, fp32 out (mma.sync): A
+// row-major and B column-major in the m16n8k16 fragment layouts, with the
+// lane's group g = lane / 4 and quad position q = lane % 4:
+//   a[0] (row g, k 2q..2q+1), a[1] (row g+8), a[2] (k + 8), a[3] (both);
+//   b[0] (k 2q..2q+1, col g), b[1] (k + 8);
+//   d[0..1] (row g, cols 2q..2q+1), d[2..3] (row g+8)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
+// addresses of matrix j, which lands in r[j].  Lane l receives row l / 4,
+// elements 2(l % 4) and 2(l % 4) + 1 (with .trans: column l / 4, rows
+// 2(l % 4) and 2(l % 4) + 1), the layout of an mma fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row))
+      : "memory");
+}
+
+// Programmatic dependent launch: a kernel launched after this one with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of this one has called `launch_dependents`; it calls
+// `wait_primary` before it reads what this one writes.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

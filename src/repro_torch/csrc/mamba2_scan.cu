@@ -51,7 +51,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 constexpr int THREADS = 256;       // chunk states, state pass
 constexpr int WARPS = THREADS / 32;
@@ -133,14 +138,6 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
       "l"(src), "r"(ok ? 4 : 0)
       : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // rows x cols of a strided matrix into dst[rows_pad][T] (leading
 // dimension ld), zero-padded
 template <int T>
