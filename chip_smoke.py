@@ -2,6 +2,7 @@
 
   python3 chip_smoke.py                        # every phase, the result
   python3 chip_smoke.py zamba2_serve profile   # named phases only, traced
+  python3 chip_smoke.py train_parity train     # the training phases
 
 Phases, one line each; a failing phase raises and nothing catches it:
 
@@ -11,8 +12,9 @@ Phases, one line each; a failing phase raises and nothing catches it:
    SASS instructions (HGMMA: wgmma, HMMA: mma.sync) where a disassembler
    is found.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving paths (flash at both qwen2-7b's and zamba2's
-   prefill shapes, and at head dim 32; paged at bf16 and fp32, head dims
+   the shapes of the serving and training paths (flash at qwen2-7b's and
+   zamba2's prefill shapes, at smollm-360m's training microbatch, 15
+   heads over 5, and at head dim 32; paged at bf16 and fp32, head dims
    32/64/128, 1/7/8/32 query heads per kv head and 8/16/64-token pages,
    a batch whose table leaves every span but the first empty, and 33
    heads per kv head and a pool view that 16-byte copies cannot read,
@@ -22,7 +24,9 @@ Phases, one line each; a failing phase raises and nothing catches it:
    large for shared memory must fail to launch), and the times of kernel,
    plain version and (for flash) the PyTorch library call, with CUDA
    events, kernel and its yardstick timed in turns; paged also with the
-   serve run's shared-prefix table.
+   serve run's shared-prefix table; flash also forward and backward at
+   the training shape (the op's backward recomputes through the plain
+   version) against the library call's.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -40,6 +44,19 @@ Phases, one line each; a failing phase raises and nothing catches it:
    tokens (38 SSD-scan and 6 flash launches per call), then
    ``make_serve_step`` at batch 8 against ``init_cache(8, 4096)``: 128
    teacher-forced prompt tokens, then 64 greedy ones (no SSD launch).
+7. train_parity: fp32, TF32 off, B=2, S=256: one train step's loss, grad
+   norm and every gradient through the kernels and without them, from one
+   state: smollm-360m at full width, 2 layers, flash kernel against the
+   einsum path; zamba2-1.2b at full width, 7 layers, the SSD-scan and
+   flash kernels against the same step on the CPU (plain versions).
+8. train: smollm-360m as published (32 layers, 361.8 M params), fp32
+   params, bf16 compute, flash kernel; global batch 8 × 2048 tokens in 2
+   microbatches, AdamW, random init from seed 0, the learnable Markov
+   stream of ``examples/train_lm.py`` as a WTF token shard on a 4-server,
+   2-replica cluster in a temporary directory.  20 steps through the
+   port's ``Trainer`` with a checkpoint at 20, then a fresh trainer
+   restores step 20 (state bit for bit, data cursor) and trains to 24.
+   Flash launches must be 32 × 2 × 24; the loss must fall.
 
 Run it from the root of a checkout: it imports ``src/`` of the working
 directory.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -84,9 +101,20 @@ SSD_SHAPE = dict(b=4, s=4096, h=64, p=64, n=64, chunk=128)  # zamba2 prefill
 KERNEL_LIBS = ["flash_attention", "paged_attention", "mamba2_scan"]
 PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "paged_merge",
                 "chunk_states", "state_pass", "chunk_outputs")
+TRAIN_FLASH_SHAPE = dict(b=4, s=2048, h=15, hkv=5, d=64)  # smollm train
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
 Z_PREFILL_B, Z_PREFILL_S, Z_PREFILLS = 4, 4096, 3
 Z_DECODE_B, Z_CACHE_LEN, Z_PROMPT, Z_NEW = 8, 4096, 128, 64
+# smollm-360m training: global batch 8 of 2048 tokens in 2 microbatches,
+# 20 steps, a checkpoint at 20, a restart that trains on to 24
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 2048, 2
+TRAIN_STEPS, TRAIN_RESTART_STEPS, TRAIN_WARMUP = 20, 24, 2
+# train_parity: each gradient leaf within this share of its largest
+# entry.  smollm: the fp32 flash kernel against the einsum path (both
+# backwards are the same plain recompute, so only the forward's 2e-5 moves
+# them); zamba2: the SSD kernel (split-TF32 products) against the CPU, at
+# the SSD tolerance
+GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL}
 
 
 def log(phase: str, **kw) -> None:
@@ -284,6 +312,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
     zs = Z_FLASH_SHAPE
     flash_case(zs["b"], zs["s"], zs["h"], zs["hkv"], zs["d"], torch.bfloat16,
                None)
+    ts = TRAIN_FLASH_SHAPE                        # 15 heads, GQA 3:1
+    for dt in (torch.bfloat16, torch.float32):
+        flash_case(ts["b"], ts["s"], ts["h"], ts["hkv"], ts["d"], dt, None)
 
     def flash_times(b, s, h, hkv, d, what):
         """Kernel and library call in turns, plain version alone, at one
@@ -310,18 +341,24 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
                 "flops": flops}
 
-    # timing at the forks' prefill shape (7 of qwen2-7b's 8 prefills) and
-    # at zamba2-1.2b's
+    # timing at the forks' prefill shape (7 of qwen2-7b's 8 prefills), at
+    # zamba2-1.2b's and at smollm-360m's training microbatch
     s = SERVE_PROMPT + SERVE_SUFFIX
     flash_shapes = [
         flash_times(fs["b"], s, fs["h"], fs["hkv"], fs["d"],
                     "qwen2-7b serve"),
         flash_times(zs["b"], zs["s"], zs["h"], zs["hkv"], zs["d"],
-                    "zamba2-1.2b serve")]
+                    "zamba2-1.2b serve"),
+        flash_times(ts["b"], ts["s"], ts["h"], ts["hkv"], ts["d"],
+                    "smollm-360m train")]
     for sh in flash_shapes:
         log("kernels", kernel="flash_attention", **{
             k: sh[k] for k in ("path", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by")})
+
+    train_fb = flash_train_times(gen)
+    log("kernels", kernel="flash_attention", **train_fb)
+    flash_shapes[-1].update(train_fb)
 
     kernels = {
         "flash_attention": {
@@ -341,6 +378,41 @@ def phase_kernels(gen: torch.Generator) -> dict:
                           ("name", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by")})
     return kernels
+
+
+def flash_train_times(gen: torch.Generator) -> dict:
+    """Forward and backward of the flash op at smollm-360m's training
+    microbatch (the kernel forward, the plain recompute backward) and of
+    the library call, in turns: the attention cost of one layer's
+    microbatch in the train step."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    ts = TRAIN_FLASH_SHAPE
+
+    def rnd(h):
+        return torch.randn((ts["b"], ts["s"], h, ts["d"]), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(ts["h"]), rnd(ts["hkv"]), rnd(ts["hkv"])
+    g = rnd(ts["h"])
+    for t in (q, k, v):
+        t.requires_grad_()
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def op():
+        out = flash_attention(q, k, v, causal=True)
+        torch.autograd.grad(out, (q, k, v), g)
+
+    def library():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qt, kt, vt), gt)
+
+    ms = cuda_ms_turns({"op": op, "library": library}, rounds=4)
+    return {"fwd_bwd_ms": ms["op"], "library_fwd_bwd_ms": ms["library"]}
 
 
 def paged_kernel(gen: torch.Generator) -> dict:
@@ -653,7 +725,8 @@ def profile_window(name: str, fn) -> None:
     """Run ``fn`` under torch.profiler; print the wall time, the device's
     busy time and idle share, and the kernels that took the most device
     time in the window, with the port's own kernels always among them,
-    each with its share of the busy time."""
+    each with its share of the busy time; then the operators whose
+    kernels took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -679,6 +752,14 @@ def profile_window(name: str, fn) -> None:
         if i < 12 or any(k in kname for k in PORT_KERNELS):
             print(f"[profile] {name}: {t:9.3f} ms {n:5d}x "
                   f"{t / busy_ms:7.2%} {kname[:90]}")
+    # the same device time by the PyTorch operator that launched it
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    for e in ops[:10]:
+        t = e.self_device_time_total / 1e3
+        print(f"[profile] {name}: {t:9.3f} ms {e.count:5d}x "
+              f"{t / busy_ms:7.2%} op {e.key[:60]}")
 
 
 def phase_serve(gen: torch.Generator, profile: bool = False) -> dict:
@@ -936,6 +1017,260 @@ def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+def phase_train_parity(gen: torch.Generator) -> None:
+    """One train step's loss, grad norm and gradients with and without the
+    kernels, from the same state, fp32 with TF32 off: smollm-360m at full
+    width (2 layers) through the flash kernel against the einsum path, and
+    zamba2-1.2b at full width (7 layers) through the SSD-scan and flash
+    kernels against the same step on the CPU (plain versions)."""
+    from repro_torch.checkpoint.serialize import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mamba2_scan import kernel as sk
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import make_grad_fn
+    from repro_torch.train.optimizer import global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s = 2, 256
+
+    def grads(cfg, params, tokens):
+        loss, _, g = make_grad_fn(get_model(cfg))(
+            params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+        return (float(loss), float(global_norm(g)),
+                {k: v.cpu() for k, v in flatten_tree(g).items()})
+
+    def compare(arch, kern, plain, launches):
+        (lk, nk, gk), (lp, np_, gp) = kern, plain
+        tol = GRAD_TOL[arch]
+        errs = {}
+        for name, ref in gp.items():
+            if not torch.isfinite(gk[name]).all():
+                raise AssertionError(f"{arch}: non-finite gradient {name}")
+            errs[name] = ((gk[name] - ref).abs().max()
+                          / ref.abs().max().clamp_min(1e-30)).item()
+        worst = max(errs, key=errs.get)
+        loss_err, norm_err = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
+        if errs[worst] > tol or loss_err > tol or norm_err > tol:
+            raise AssertionError(
+                f"{arch} train step: kernels vs plain, loss {lk} vs {lp}, "
+                f"grad norm {nk} vs {np_}, worst gradient {worst} "
+                f"{errs[worst]:.3e} of its largest entry (tol {tol})")
+        log("train_parity", arch=arch, loss=f"{lk:.6f}",
+            loss_plain=f"{lp:.6f}", grad_norm=f"{nk:.6f}",
+            grad_norm_plain=f"{np_:.6f}", loss_rel_err=f"{loss_err:.3e}",
+            grad_norm_rel_err=f"{norm_err:.3e}", leaves=len(errs),
+            worst_leaf=worst, worst_rel_err=f"{errs[worst]:.3e}", tol=tol,
+            launches=launches)
+
+    rng = np.random.RandomState(4)
+    cfg = get_config("smollm-360m").replace(n_layers=2,
+                                            compute_dtype="float32")
+    params = get_model(cfg).init(gen, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s + 1))).cuda()
+    fk.launches = 0
+    kern = grads(cfg.replace(attn_impl="pallas"), params, tokens)
+    if fk.launches != cfg.n_layers:
+        raise AssertionError(f"smollm step launched flash {fk.launches}")
+    plain = grads(cfg.replace(attn_impl="xla"), params, tokens)
+    if fk.launches != cfg.n_layers:
+        raise AssertionError("the einsum path launched the flash kernel")
+    compare("smollm-360m", kern, plain, {"flash_attention": fk.launches})
+    del params, kern, plain
+
+    cfg = get_config("zamba2-1.2b").replace(n_layers=7,
+                                            compute_dtype="float32",
+                                            attn_impl="pallas")
+    params = get_model(cfg).init(gen, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s + 1))).cuda()
+    fk.launches = sk.launches = 0
+    kern = grads(cfg, params, tokens)
+    launches = {"mamba2_scan": sk.launches, "flash_attention": fk.launches}
+    # remat "dots" (the published config's) runs each Mamba2 layer's
+    # forward again in backward, scan included; the shared block is not
+    # rematerialised
+    if launches != {"mamba2_scan": 2 * cfg.n_layers, "flash_attention": 1}:
+        raise AssertionError(f"zamba2 step launched {launches}")
+    t0 = time.perf_counter()
+    plain = grads(cfg, tree_map(lambda t: t.cpu(), params), tokens.cpu())
+    cpu_s = time.perf_counter() - t0
+    log("train_parity", arch="zamba2-1.2b", cpu_step_s=f"{cpu_s:.3f}")
+    compare("zamba2-1.2b", kern, plain, launches)
+    del params, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 8
+def markov_stream(n: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """The learnable token stream of ``examples/train_lm.py``: next =
+    (tok · 31 + 7 + noise) mod vocab, noise 1 with probability 1/3."""
+    noise = (np.random.RandomState(seed).randint(3, size=n) == 0)
+    toks = np.zeros(n, np.int64)
+    for i in range(1, n):
+        toks[i] = (toks[i - 1] * 31 + 7 + noise[i]) % vocab
+    return toks.astype(np.int32)
+
+
+def phase_train(profile: bool = False) -> dict:
+    """smollm-360m as published, trained through the port's `Trainer` on a
+    WTF cluster (4 servers, 2 replicas, 4 MiB regions) in a temporary
+    directory: 20 steps with a checkpoint at 20, then a fresh trainer that
+    restores step 20 (state bit for bit, cursor) and trains on to 24."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.serialize import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import Cluster
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.data.records import write_token_shard
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainHyper
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("smollm-360m").replace(attn_impl="pallas",
+                                            max_seq=TRAIN_S)
+    model = get_model(cfg)
+
+    class TimedTrainer(Trainer):
+        """Times the restore and the save (made synchronous), keeps the
+        state as saved, and holds a restore against an expected state."""
+        expect = saved = None
+        save_s = restore_s = 0.0
+
+        def restore_or_init(self):
+            t0 = time.perf_counter()
+            state, pstate = super().restore_or_init()
+            torch.cuda.synchronize()
+            self.restore_s = time.perf_counter() - t0
+            if self.expect is not None:
+                flat, cursor = flatten_tree(state), self.expect[1]
+                for name, t in self.expect[0].items():
+                    if not torch.equal(flat[name], t):
+                        raise AssertionError(f"restored {name} differs")
+                if pstate.to_dict() != cursor:
+                    raise AssertionError(f"restored cursor {pstate} vs "
+                                         f"{cursor}")
+            self.state = state
+            return state, pstate
+
+        def _save(self, state, pstate, step):
+            torch.cuda.synchronize()
+            self.saved = ({k: t.clone() for k, t in
+                           flatten_tree(state).items()}, pstate.to_dict())
+            t0 = time.perf_counter()
+            super()._save(state, pstate, step)
+            self.async_ckpt.wait()
+            self.save_s = time.perf_counter() - t0
+
+    data_dir = tempfile.mkdtemp(prefix="wtf_train_")
+    cluster = Cluster(n_servers=4, data_dir=data_dir, replication=2,
+                      region_size=4 << 20)
+    try:
+        fs = cluster.client()
+        fs.mkdir("/corpus")
+        t0 = time.perf_counter()
+        write_token_shard(fs, "/corpus/shard0", iter(markov_stream(
+            TRAIN_B * (TRAIN_S + 1) * 32, cfg.vocab)), TRAIN_S + 1)
+        corpus_s = time.perf_counter() - t0
+
+        def trainer(total_steps):
+            pipe = DataPipeline(fs, PipelineConfig(
+                src_paths=("/corpus/shard0",), work_dir="/epochs",
+                block_tokens=TRAIN_S + 1, global_batch=TRAIN_B, seed=0))
+            return TimedTrainer(
+                model, pipe, CheckpointManager(fs, "/ckpt", keep=3),
+                hyper=TrainHyper(adamw=AdamWConfig(
+                    lr=1e-3, warmup_steps=5,
+                    decay_steps=TRAIN_RESTART_STEPS),
+                    accum_steps=TRAIN_ACCUM),
+                cfg=TrainerConfig(total_steps=total_steps,
+                                  ckpt_every=TRAIN_STEPS, log_every=1),
+                device="cuda")
+
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches = 0
+        first = trainer(TRAIN_STEPS)
+        out1 = first.run()
+        peak = torch.cuda.max_memory_allocated()
+        second = trainer(TRAIN_RESTART_STEPS)
+        second.expect = first.saved
+        out2 = second.run()
+        launches = {"flash_attention": fk.launches}
+        manifest = second.ckpt.read_manifest()
+
+        want = cfg.n_layers * TRAIN_ACCUM * TRAIN_RESTART_STEPS
+        if launches["flash_attention"] != want:
+            raise AssertionError(f"flash launches {launches}, want {want}")
+        hist = out1["history"] + out2["history"]
+        losses = {int(h["step"]): h["loss"] for h in hist}
+        if sorted(losses) != list(range(1, TRAIN_RESTART_STEPS + 1)):
+            raise AssertionError(f"steps logged {sorted(losses)}")
+        if not all(np.isfinite(list(losses.values()))):
+            raise AssertionError(f"non-finite losses {losses}")
+        if not losses[TRAIN_STEPS] < losses[1]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        if manifest["step"] != TRAIN_STEPS or manifest["pipeline"] != \
+                {"epoch": 0, "step_in_epoch": TRAIN_STEPS}:
+            raise AssertionError(f"checkpoint {manifest['step']} cursor "
+                                 f"{manifest['pipeline']}")
+
+        # wall time of each step (the trainer reads its metrics every step)
+        step_ms = [1e3 / h["steps_per_s"] for h in out1["history"]]
+        ms = float(np.median(step_ms[TRAIN_WARMUP:]))
+        tokens = TRAIN_B * TRAIN_S
+        n_params = model.param_count()
+        # model FLOPs: 6·N per token for the matmuls, forward and backward,
+        # and 6·L·H·D·S per token for causal attention (the plain recompute
+        # in the attention backward is not counted)
+        flops = tokens * (6 * n_params + 6 * cfg.n_layers * cfg.n_heads
+                          * cfg.head_dim_ * TRAIN_S)
+        peak_flops = PEAK_FLOPS[torch.bfloat16]
+        ckpt_gb = sum(t.numel() * t.element_size()
+                      for t in first.saved[0].values()) / 1e9
+        log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+            heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_ff=cfg.d_ff,
+            vocab=cfg.vocab, params=n_params, seq=TRAIN_S,
+            global_batch=TRAIN_B, accum_steps=TRAIN_ACCUM,
+            dtype=f"params fp32, compute {cfg.compute_dtype}",
+            attn_impl=cfg.attn_impl)
+        log("train", ms_per_step=f"{ms:.3f}",
+            ms_per_step_all=[round(x, 3) for x in step_ms],
+            ms_per_step_after_restart=[round(1e3 / h["steps_per_s"], 3)
+                                       for h in out2["history"]],
+            tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+            model_tflops_per_step=f"{flops / 1e12:.3f}",
+            model_tflops_per_s=f"{flops / ms / 1e9:.3f}",
+            share_of_bf16_peak=f"{flops / ms * 1e3 / peak_flops:.4f}",
+            peak_gb=f"{peak / 1e9:.3f}")
+        log("train", loss_step_1=f"{losses[1]:.5f}",
+            loss_step_20=f"{losses[TRAIN_STEPS]:.5f}",
+            loss_step_24=f"{losses[TRAIN_RESTART_STEPS]:.5f}",
+            losses=[round(losses[i], 5) for i in sorted(losses)])
+        log("train", checkpoint_step=TRAIN_STEPS, state_gb=f"{ckpt_gb:.3f}",
+            replicas=2, save_s=f"{first.save_s:.3f}",
+            restore_s=f"{second.restore_s:.3f}",
+            restored_bit_for_bit=True, cursor=manifest["pipeline"],
+            corpus_s=f"{corpus_s:.3f}", launches=launches)
+        if profile:
+            # outside the counted run: two more steps after the restart's
+            batch = second._batch(next(iter(second.pipeline)))
+            profile_window("train step x2", lambda: [
+                second.train_step(second.state, batch) for _ in range(2)])
+        del first, second
+    finally:
+        cluster.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this script runs on the "
@@ -943,10 +1278,10 @@ def main() -> int:
         return 1
     # with no arguments every phase runs and the result lines are printed;
     # naming phases (kernels, parity, serve, zamba2_parity, zamba2_serve,
-    # profile) runs just those, to debug or to trace a serve phase; profile
-    # alone traces the qwen2-7b serve phase
+    # train_parity, train, profile) runs just those, to debug or to trace a
+    # serve or train phase; profile alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "zamba2_parity",
-                              "zamba2_serve"]
+                              "zamba2_serve", "train_parity", "train"]
     profile = "profile" in phases
 
     def gen(seed):
@@ -959,12 +1294,17 @@ def main() -> int:
         kernels = phase_kernels(gen(2))
     if "parity" in phases:
         phase_parity(gen(1))
-    if "serve" in phases or (profile and "zamba2_serve" not in phases):
+    if "serve" in phases or (profile and not {"zamba2_serve", "train"}
+                             & set(phases)):
         launches["qwen2-7b serve"] = phase_serve(gen(0), profile=profile)
     if "zamba2_parity" in phases:
         phase_zamba2_parity(gen(3))
     if "zamba2_serve" in phases:
         launches["zamba2-1.2b serve"] = phase_zamba2_serve(gen(0), profile)
+    if "train_parity" in phases:
+        phase_train_parity(gen(5))
+    if "train" in phases:
+        launches["smollm-360m train"] = phase_train(profile)
     if sys.argv[1:]:
         return 0
     for name, kern in kernels.items():

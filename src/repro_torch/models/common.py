@@ -8,10 +8,14 @@ package, so a parameter tree maps one to one between the two packages (see
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 VOCAB_PAD = 128
 
@@ -63,6 +67,42 @@ def stacked(n_layers: int, sub: Dict[str, P]) -> Dict[str, P]:
     return {k: P((n_layers,) + p.shape, ("layers",) + p.axes, init=p.init,
                  scale=p.scale, dtype=p.dtype)
             for k, p in sub.items()}
+
+
+def layer_views(layers: Dict[str, torch.Tensor]
+                ) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's parameters as views into the stacked tree, unbound once:
+    the backward of `unbind` stacks the layers' gradients in one copy,
+    where indexing per layer would add a full-size zero gradient per
+    layer."""
+    parts = {k: v.unbind(0) for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+# matmul outputs, which remat "dots" keeps (JAX's `checkpoint_dots`)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def remat(body: Callable, cfg) -> Callable:
+    """``body`` under the config's remat policy, the port's `scan_layers`
+    (the JAX package wraps its scan body in `jax.checkpoint`): "full"
+    keeps only the layer's inputs and recomputes the rest in backward,
+    "dots" also keeps the matmul outputs; "none", or grad off, runs the
+    body as it is."""
+    if cfg.remat not in ("full", "dots"):
+        return body
+    context_fn = (partial(create_selective_checkpoint_contexts, _DOTS)
+                  if cfg.remat == "dots" else noop_context_fn)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return run
 
 
 def attn_cache_spec(cfg, batch: int, window: int,

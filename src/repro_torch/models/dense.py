@@ -1,9 +1,10 @@
 """Dense GQA transformer (qwen2 / smollm) in plain PyTorch.
 
 Sequential pre-norm blocks.  The JAX package's `lax.scan` over the stacked
-layer axis is a Python loop here.  Decode runs one token against the ring
-KV cache of `cache_spec`, written in place.  Parallel blocks (command-r)
-and the VLM patch embeddings come with their own slices.
+layer axis is a Python loop here, under the config's remat policy.
+Decode runs one token against the ring KV cache of `cache_spec`, written
+in place.  Parallel blocks (command-r) and the VLM patch embeddings come
+with their own slices.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Any, Dict
 import torch
 
 from . import layers as L
-from .common import P, attn_cache_spec, decode_window, padded_vocab, stacked
+from .common import (P, attn_cache_spec, decode_window, layer_views,
+                     padded_vocab, remat, stacked)
 
 
 def layer_schema(cfg) -> Dict[str, P]:
@@ -79,9 +81,14 @@ def layer(params, i: int) -> Dict[str, torch.Tensor]:
 def forward(params, batch, cfg) -> torch.Tensor:
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
-    for i in range(cfg.n_layers):
-        x, _ = _block(layer(params, i), x, cfg, positions=positions,
-                      sliding_window=cfg.sliding_window)
+
+    def body(p, x):
+        return _block(p, x, cfg, positions=positions,
+                      sliding_window=cfg.sliding_window)[0]
+
+    body = remat(body, cfg)
+    for p in layer_views(params["layers"]):
+        x = body(p, x)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.unembed(params, x, cfg)
 

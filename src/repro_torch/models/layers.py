@@ -1,6 +1,6 @@
 """Shared building blocks of the port's models (plain PyTorch): norms,
-RoPE, attention (full-sequence and against the ring KV cache), MLP and
-embeddings.
+RoPE, attention (full-sequence and against the ring KV cache), MLP,
+embeddings and the training loss.
 
 Functional, as in the JAX package: params are nested dicts of tensors and
 these functions only compute.  Layouts follow the JAX package: activations
@@ -213,3 +213,12 @@ def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
 def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
     w = params.get("unembedding", params["embedding"])
     return x @ cast(w, to_dtype(cfg.compute_dtype)).T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token loss over every position, as in the JAX package: an
+    fp32 logsumexp over the whole (padded) vocab, no label mask."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None]).squeeze(-1)
+    return (logz - gold).mean()

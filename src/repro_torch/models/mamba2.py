@@ -1,12 +1,15 @@
 """Mamba2 (SSD) blocks + Zamba2-style shared attention (zamba2-1.2b), in
 PyTorch.
 
-Prefill uses the chunked SSD scan (`ssd_chunked`: the hand-written CUDA
-kernel on a CUDA tensor, its plain version on a CPU one); decode is the
-O(1) recurrent update in plain PyTorch.  After every `hybrid.attn_period`
+Prefill and training use the chunked SSD scan (`ssd_chunked`: the
+hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU one,
+differentiable through its autograd Function); decode is the O(1)
+recurrent update in plain PyTorch.  After every `hybrid.attn_period`
 Mamba2 layers the weight-shared attention+MLP block is applied, with a
 separate KV cache per application site.  The JAX package's `lax.scan` per
-group is a Python loop here.  Decode writes its caches in place.
+group is a Python loop here, under the config's remat policy (the shared
+block is not rematerialised, as in the JAX package).  Decode writes its
+caches in place.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba2_scan import ssd_scan as ssd_chunked
 
 from . import layers as L
-from .common import (P, attn_cache_spec, decode_window, padded_vocab,
-                     stacked, to_dtype)
+from .common import (P, attn_cache_spec, decode_window, layer_views,
+                     padded_vocab, remat, stacked, to_dtype)
 
 
 # --------------------------------------------------------------- structure
@@ -194,11 +197,16 @@ def forward(params, batch, cfg) -> torch.Tensor:
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     period = cfg.hybrid.attn_period if cfg.hybrid else cfg.n_layers
+
+    def body(p, x):
+        return x + mamba2_block(p, x, cfg)[0]
+
+    body = remat(body, cfg)
+    layers = layer_views(params["layers"])
     start = 0
     for size in group_sizes(cfg):
-        for i in range(start, start + size):
-            out, _ = mamba2_block(_layer(params, i), x, cfg)
-            x = x + out
+        for p in layers[start:start + size]:
+            x = body(p, x)
         start += size
         if size == period and "shared_attn" in params:
             x, _ = _shared_attn(params["shared_attn"], x, cfg,

@@ -1,3 +1,7 @@
-from .step import make_prefill_step, make_serve_step
+from .optimizer import AdamWConfig, OptState
+from .step import (TrainHyper, init_state, make_grad_fn, make_loss_fn,
+                   make_prefill_step, make_serve_step, make_train_step)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["AdamWConfig", "OptState", "TrainHyper", "init_state",
+           "make_grad_fn", "make_loss_fn", "make_prefill_step",
+           "make_serve_step", "make_train_step"]
