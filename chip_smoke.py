@@ -3,6 +3,7 @@
   python3 chip_smoke.py                        # every phase, the result
   python3 chip_smoke.py zamba2_serve profile   # named phases only, traced
   python3 chip_smoke.py train_parity train     # the training phases
+  python3 chip_smoke.py dense_parity moe_parity moe_serve   # dense + MoE
 
 Phases, one line each; a failing phase raises and nothing catches it:
 
@@ -14,12 +15,15 @@ Phases, one line each; a failing phase raises and nothing catches it:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the serving and training paths (flash at qwen2-7b's and
    zamba2's prefill shapes, at smollm-360m's training microbatch, 15
-   heads over 5, and at head dim 32; paged at bf16 and fp32, head dims
-   32/64/128, 1/7/8/32 query heads per kv head and 8/16/64-token pages,
-   a batch whose table leaves every span but the first empty, and 33
-   heads per kv head and a pool view that 16-byte copies cannot read,
-   which must raise; for the SSD scan also one chunk, a
-   sequence shorter than the chunk, the smoke sizes, a given initial state
+   heads over 5, at head dim 32, at olmoe-1b-7b's prefill, at
+   command-r-35b's 64 heads over 8, at llava-next-34b's 576 patches
+   and 64 text tokens over 56 heads and at mistral-large-123b's 96 heads
+   over 8, at 2048 tokens and at the engine_parity prompts' lengths; paged
+   at bf16 and fp32, head dims 32/64/128, 1/7/8/12/32 query heads per kv
+   head and 8/16/64-token pages, a batch whose table leaves every span
+   but the first empty, and 33 heads per kv head and a pool view that
+   16-byte copies cannot read, which must raise; for the SSD scan also
+   one chunk, a sequence shorter than the chunk, the smoke sizes, a given initial state
    and a dt large enough that an unmasked decay overflows; a chunk too
    large for shared memory must fail to launch), and the times of kernel,
    plain version and (for flash) the PyTorch library call, with CUDA
@@ -30,6 +34,11 @@ Phases, one line each; a failing phase raises and nothing catches it:
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
+3b. dense_parity: the same check for command-r-35b (parallel blocks) and
+   mistral-large-123b at full width, 2 layers, fp32, 16 new tokens; and
+   llava-next-34b's ``forward`` over 576 patch embeddings of width 1024
+   and 64 text tokens through flash equals its einsum path within 2e-3.
+   Each model is freed before the next; each one's peak memory is printed.
 4. serve: qwen2-7b at full width (28 layers), bf16, random weights from
    seed 0; a 500-token system prompt and 7 forks of it with 64-token
    suffixes, 32 new tokens each.  The launch counts of both kernels must
@@ -39,16 +48,28 @@ Phases, one line each; a failing phase raises and nothing catches it:
    the logits of ``forward`` (SSD-scan and flash kernels) equal those of
    ``decode_step`` stepped token by token from ``init_cache`` (no kernel)
    within 2e-3, and so do their greedy tokens.
+5b. moe_parity: olmoe-1b-7b and granite-moe-3b-a800m at full width, 2
+   layers, fp32, capacity factor E/k (dropless), B=2, S=256: ``forward``
+   (flash) equals ``decode_step`` stepped token by token (no kernel)
+   within 2e-3, and so do the greedy tokens; the share of routing choices
+   the two agree on and the smallest top-k margin are printed.
 6. zamba2_serve: zamba2-1.2b at full width and depth (38 layers), bf16,
    random weights from seed 0: ``make_prefill_step`` on 4 prompts of 4096
    tokens (38 SSD-scan and 6 flash launches per call), then
    ``make_serve_step`` at batch 8 against ``init_cache(8, 4096)``: 128
    teacher-forced prompt tokens, then 64 greedy ones (no SSD launch).
+6b. moe_serve: olmoe-1b-7b as published (16 layers, 6.92 B params), bf16,
+   random weights from seed 0: ``make_prefill_step`` on 4 prompts of 4096
+   tokens (16 flash launches per call), then ``make_serve_step`` at batch
+   8 against ``init_cache(8, 4096)``: 128 teacher-forced prompt tokens,
+   then 64 greedy ones (no flash launch); the share of expert choices
+   that capacity drops, in prefill and in decode.
 7. train_parity: fp32, TF32 off, B=2, S=256: one train step's loss, grad
    norm and every gradient through the kernels and without them, from one
    state: smollm-360m at full width, 2 layers, flash kernel against the
-   einsum path; zamba2-1.2b at full width, 7 layers, the SSD-scan and
-   flash kernels against the same step on the CPU (plain versions).
+   einsum path; zamba2-1.2b at full width, 7 layers, and olmoe-1b-7b at
+   full width, 2 layers (loss = ce + the router's aux loss), through the
+   kernels against the same step on the CPU (plain versions).
 8. train: smollm-360m as published (32 layers, 361.8 M params), fp32
    params, bf16 compute, flash kernel; global batch 8 × 2048 tokens in 2
    microbatches, AdamW, random init from seed 0, the learnable Markov
@@ -67,12 +88,14 @@ with no result, where torch sees no CUDA card.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -102,9 +125,24 @@ KERNEL_LIBS = ["flash_attention", "paged_attention", "mamba2_scan"]
 PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "paged_merge",
                 "chunk_states", "state_pass", "chunk_outputs")
 TRAIN_FLASH_SHAPE = dict(b=4, s=2048, h=15, hkv=5, d=64)  # smollm train
+MOE_FLASH_SHAPE = dict(b=4, s=4096, h=16, hkv=16, d=128)  # olmoe prefill
+# command-r at a 2048-token prompt; llava: 576 patches + 64 text tokens
+CMDR_FLASH_SHAPE = dict(b=1, s=2048, h=64, hkv=8, d=128)
+LLAVA_PATCHES, LLAVA_TEXT = 576, 64
+# mistral-large-123b's heads (12 query heads per kv head) at a 2048-token
+# prompt
+MISTRAL_FLASH_SHAPE = dict(b=1, s=2048, h=96, hkv=8, d=128)
+# engine_parity's prompts: a base, a fork of it and another prompt
+PARITY_PROMPTS = (40, 45, 23)
+LLAVA_FLASH_SHAPE = dict(b=1, s=LLAVA_PATCHES + LLAVA_TEXT, h=56, hkv=8,
+                         d=128)
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
-Z_PREFILL_B, Z_PREFILL_S, Z_PREFILLS = 4, 4096, 3
-Z_DECODE_B, Z_CACHE_LEN, Z_PROMPT, Z_NEW = 8, 4096, 128, 64
+# the long-prompt serve traffic of zamba2-1.2b and olmoe-1b-7b: 3 prefill
+# calls of 4 × 4096 tokens, then batch-8 decode against a 4096-token cache
+# (128 prompt tokens teacher-forced, then 64 greedy ones)
+LONG_SERVE = types.SimpleNamespace(prefill_b=4, prefill_s=4096, prefills=3,
+                                   decode_b=8, cache_len=4096, prompt=128,
+                                   new=64)
 # smollm-360m training: global batch 8 of 2048 tokens in 2 microbatches,
 # 20 steps, a checkpoint at 20, a restart that trains on to 24
 TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 2048, 2
@@ -114,7 +152,10 @@ TRAIN_STEPS, TRAIN_RESTART_STEPS, TRAIN_WARMUP = 20, 24, 2
 # backwards are the same plain recompute, so only the forward's 2e-5 moves
 # them); zamba2: the SSD kernel (split-TF32 products) against the CPU, at
 # the SSD tolerance
-GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL}
+# olmoe: the card's flash kernel and index_add order against the CPU, held
+# to zamba2's tolerance
+GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL,
+            "olmoe-1b-7b": SSD_TOL}
 
 
 def log(phase: str, **kw) -> None:
@@ -315,6 +356,21 @@ def phase_kernels(gen: torch.Generator) -> dict:
     ts = TRAIN_FLASH_SHAPE                        # 15 heads, GQA 3:1
     for dt in (torch.bfloat16, torch.float32):
         flash_case(ts["b"], ts["s"], ts["h"], ts["hkv"], ts["d"], dt, None)
+    # olmoe's prefill (no grouping at D=128), command-r's, llava's and
+    # mistral-large's heads; fp32 as dense_parity runs them; mistral's
+    # 12-head groups also at the engine_parity prompts' lengths
+    new_shapes = (MOE_FLASH_SHAPE, CMDR_FLASH_SHAPE, LLAVA_FLASH_SHAPE,
+                  MISTRAL_FLASH_SHAPE)
+    for sh in new_shapes:
+        flash_case(sh["b"], sh["s"], sh["h"], sh["hkv"], sh["d"],
+                   torch.bfloat16, None)
+    for sh in new_shapes[1:]:
+        flash_case(sh["b"], sh["s"], sh["h"], sh["hkv"], sh["d"],
+                   torch.float32, None)
+    ms = MISTRAL_FLASH_SHAPE
+    for s_len in PARITY_PROMPTS:
+        for dt in (torch.bfloat16, torch.float32):
+            flash_case(ms["b"], s_len, ms["h"], ms["hkv"], ms["d"], dt, None)
 
     def flash_times(b, s, h, hkv, d, what):
         """Kernel and library call in turns, plain version alone, at one
@@ -342,7 +398,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 "flops": flops}
 
     # timing at the forks' prefill shape (7 of qwen2-7b's 8 prefills), at
-    # zamba2-1.2b's and at smollm-360m's training microbatch
+    # zamba2-1.2b's, at smollm-360m's training microbatch, at olmoe-1b-7b's
+    # prefill, at command-r-35b's and mistral-large-123b's heads over a
+    # 2048-token prompt and at llava-next-34b's image and prompt
     s = SERVE_PROMPT + SERVE_SUFFIX
     flash_shapes = [
         flash_times(fs["b"], s, fs["h"], fs["hkv"], fs["d"],
@@ -351,6 +409,12 @@ def phase_kernels(gen: torch.Generator) -> dict:
                     "zamba2-1.2b serve"),
         flash_times(ts["b"], ts["s"], ts["h"], ts["hkv"], ts["d"],
                     "smollm-360m train")]
+    for sh, what in zip(new_shapes, ("olmoe-1b-7b serve",
+                                     "command-r-35b dense_parity",
+                                     "llava-next-34b dense_parity",
+                                     "mistral-large-123b dense_parity")):
+        flash_shapes.append(flash_times(sh["b"], sh["s"], sh["h"],
+                                        sh["hkv"], sh["d"], what))
     for sh in flash_shapes:
         log("kernels", kernel="flash_attention", **{
             k: sh[k] for k in ("path", "ms", "plain_ms", "library_ms",
@@ -358,7 +422,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
     train_fb = flash_train_times(gen)
     log("kernels", kernel="flash_attention", **train_fb)
-    flash_shapes[-1].update(train_fb)
+    flash_shapes[2].update(train_fb)
 
     kernels = {
         "flash_attention": {
@@ -417,7 +481,7 @@ def flash_train_times(gen: torch.Generator) -> dict:
 
 def paged_kernel(gen: torch.Generator) -> dict:
     """The paged decode-attention kernel against its plain version at every
-    dtype, head dim 32/64/128, 1/7/8/32 query heads per kv head and
+    dtype, head dim 32/64/128, 1/7/8/12/32 query heads per kv head and
     8/16/64 token pages, at lengths around page and tile edges; a batch
     that leaves every span of the table but the first empty (with a length
     of 0); a group the kernel does not take and a pool it cannot read by
@@ -470,7 +534,7 @@ def paged_kernel(gen: torch.Generator) -> dict:
 
     mixed = [1, 16, 17, 255, 256, 511, 592, 600]   # page and tile edges
     for dt, d, g, t in itertools.product((torch.bfloat16, torch.float32),
-                                         (32, 64, 128), (1, 7, 8, 32),
+                                         (32, 64, 128), (1, 7, 8, 12, 32),
                                          (8, 16, 64)):
         err = check(inputs(mixed, dt, h=g * sv["hkv"], d=d, t=t), dt,
                     f"D={d} G={g} T={t}")
@@ -665,7 +729,13 @@ def ssd_kernel(gen: torch.Generator) -> dict:
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_parity(gen: torch.Generator) -> None:
+def engine_parity(gen: torch.Generator, arch: str, max_new: int,
+                  phase: str) -> dict:
+    """``arch`` at full width, 2 layers, fp32 (TF32 off): the engine's
+    greedy tokens (flash prefill, paged decode) for a 40-token prompt, a
+    fork of it 5 tokens longer (mid-page: copy-on-write) and a 23-token
+    prompt equal teacher-forced greedy tokens from the port's kernel-free
+    ``dense.forward``.  Returns the path's launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
@@ -674,28 +744,33 @@ def phase_parity(gen: torch.Generator) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen2-7b").replace(n_layers=2, compute_dtype="float32",
-                                         attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch).replace(n_layers=2, compute_dtype="float32",
+                                   attn_impl="pallas")
     model = get_model(cfg)
     params = model.init(gen, device="cuda")
     eng = Engine(model, params, EngineConfig(page_tokens=16, num_pages=256))
     rng = np.random.RandomState(1)
-    base = rng.randint(0, cfg.vocab, 40).astype(np.int32)   # 2.5 pages
+    n_base, n_fork, n_other = PARITY_PROMPTS
+    base = rng.randint(0, cfg.vocab, n_base).astype(np.int32)  # 2.5 pages
     prompts = [base,
-               np.concatenate([base, rng.randint(0, cfg.vocab, 5)])
+               np.concatenate([base, rng.randint(0, cfg.vocab,
+                                                 n_fork - n_base)])
                .astype(np.int32),
-               rng.randint(0, cfg.vocab, 23).astype(np.int32)]
+               rng.randint(0, cfg.vocab, n_other).astype(np.int32)]
     fk.launches = pk.launches = 0
-    a = eng.add(prompts[0], max_new=8)
-    sids = [a, eng.add(prompts[1], max_new=8, fork_from=a),
-            eng.add(prompts[2], max_new=8)]
+    a = eng.add(prompts[0], max_new=max_new)
+    sids = [a, eng.add(prompts[1], max_new=max_new, fork_from=a),
+            eng.add(prompts[2], max_new=max_new)]
     steps = 0
     while any(not eng._requests[s].done for s in sids):
         eng.step()
         steps += 1
+    launches = {"flash_attention": fk.launches,
+                "paged_attention": pk.launches}
     if (fk.launches, pk.launches) != (3 * 2, steps * 2):
-        raise AssertionError(f"parity path launches flash {fk.launches} "
-                             f"paged {pk.launches}, steps {steps}")
+        raise AssertionError(f"{arch} parity path launches {launches}, "
+                             f"steps {steps}")
     if eng.cache.stats["pages_copied"] < 1:
         raise AssertionError("the mid-page fork did not copy its page")
 
@@ -710,14 +785,80 @@ def phase_parity(gen: torch.Generator) -> None:
                 raise AssertionError("non-finite reference logits")
             want = logits[0, len(prompt) - 1:].argmax(-1).tolist()
             if want != out:
-                raise AssertionError(f"seq {sid}: engine {out} vs "
+                raise AssertionError(f"{arch} seq {sid}: engine {out} vs "
                                      f"teacher-forced forward {want}")
-    log("parity", arch="qwen2-7b", layers=2, dtype="float32",
-        requests=len(sids), steps=steps, tokens_equal=True,
-        pages=eng.cache.stats)
+    log(phase, arch=arch, layers=2, dtype="float32", requests=len(sids),
+        new_tokens=max_new, steps=steps, tokens_equal=True,
+        pages=eng.cache.stats,
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        launches=launches)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity(gen: torch.Generator) -> None:
+    engine_parity(gen, "qwen2-7b", 8, "parity")
+
+
+def phase_dense_parity(gen: torch.Generator) -> dict:
+    """command-r-35b (parallel blocks) and mistral-large-123b through the
+    engine as `engine_parity`, 16 new tokens; then llava-next-34b's forward
+    over patch embeddings, flash against the einsum path."""
+    launches = {f"{arch} dense_parity": engine_parity(gen, arch, 16,
+                                                      "dense_parity")
+                for arch in ("command-r-35b", "mistral-large-123b")}
+    launches["llava-next-34b dense_parity"] = llava_parity(gen)
+    return launches
+
+
+def llava_parity(gen: torch.Generator) -> dict:
+    """llava-next-34b at full width, 2 layers, fp32 (TF32 off): ``forward``
+    with 576 patch embeddings of width 1024 and 64 text tokens, B=2,
+    through the flash kernel equals the einsum path within 2e-3, the
+    patches' logits stripped, and so do its greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llava-next-34b").replace(
+        n_layers=2, compute_dtype="float32", attn_impl="pallas")
+    model = get_model(cfg)
+    params = model.init(gen, device="cuda")
+    b = 2
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(3).randint(
+                 0, cfg.vocab, (b, LLAVA_TEXT))).cuda(),
+             "patch_embeds": torch.randn(
+                 (b, cfg.vlm.num_patches, cfg.vlm.vision_dim),
+                 generator=gen, device="cuda")}
+    fk.launches = 0
+    with torch.no_grad():
+        out = model.forward(params, batch)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fk.launches}
+        ref = get_model(cfg.replace(attn_impl="xla")).forward(params, batch)
+    if fk.launches != cfg.n_layers:
+        raise AssertionError(f"llava forward launched flash {fk.launches}")
+    if out.shape != ref.shape or out.shape[:2] != (b, LLAVA_TEXT):
+        raise AssertionError(f"llava logits {tuple(out.shape)}")
+    err = max_err(out, ref, torch.float32, "llava forward, flash vs einsum",
+                  2e-3)
+    if not torch.equal(out.argmax(-1), ref.argmax(-1)):
+        raise AssertionError("llava greedy tokens differ")
+    log("dense_parity", arch="llava-next-34b", layers=cfg.n_layers,
+        dtype="float32", batch=b, patches=cfg.vlm.num_patches,
+        vision_dim=cfg.vlm.vision_dim, text_tokens=LLAVA_TEXT,
+        max_abs_err=f"{err:.3e}",
+        max_abs_logit=f"{ref.abs().max().item():.3e}", tokens_equal=True,
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        launches=launches)
+    del params, batch, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -905,6 +1046,49 @@ def phase_zamba2_parity(gen: torch.Generator) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
+def run_prefills(prefill, params, batch, n: int, b: int, s: int, vocab: int,
+                 check) -> list:
+    """``n`` calls of ``prefill`` on fresh [b, s] token batches, each timed
+    by the host clock to its synchronisation; ``check(i)`` checks the
+    launch counts after call i, and the tokens must lie in the vocab."""
+    ms = []
+    for i in range(n):
+        tokens = batch(b, s)
+        t0 = time.perf_counter()
+        nxt = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(i)
+        if nxt.shape != (b,) or not bool(((nxt >= 0) & (nxt < vocab)).all()):
+            raise AssertionError(f"prefill tokens {nxt.tolist()}")
+    return ms
+
+
+def run_decode(serve, params, cache, prompts: torch.Tensor, new: int,
+               vocab: int) -> tuple:
+    """Batched decode through ``serve``: the prompts [B, P] teacher-forced,
+    then ``new`` greedy tokens, each step timed by the host clock to its
+    synchronisation.  Returns (step ms, cache, the last step's batch)."""
+    b, n_prompt = prompts.shape
+    step_ms, out = [], []
+    toks = prompts[:, :1]
+    for t in range(n_prompt + new - 1):
+        pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        nxt, cache = serve(params, cache, {"tokens": toks, "pos": pos})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if t >= n_prompt - 1:
+            out.append(nxt)
+        toks = (prompts[:, t + 1:t + 2] if t + 1 < n_prompt
+                else nxt[:, None].long())
+    gen_toks = torch.stack(out, dim=1)
+    if gen_toks.shape != (b, new) or not bool(
+            ((gen_toks >= 0) & (gen_toks < vocab)).all()):
+        raise AssertionError(f"decode tokens {gen_toks.tolist()}")
+    return step_ms, cache, {"tokens": toks, "pos": pos}
+
+
 def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -913,6 +1097,7 @@ def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
     from repro_torch.models.common import tree_map
     from repro_torch.train import make_prefill_step, make_serve_step
 
+    ls = LONG_SERVE
     cfg = get_config("zamba2-1.2b").replace(attn_impl="pallas")
     model = get_model(cfg)
     t0 = time.perf_counter()
@@ -931,99 +1116,331 @@ def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
     def batch(b, s):
         return torch.from_numpy(rng.randint(0, cfg.vocab, (b, s))).cuda()
 
+    def check(i):
+        if (sk.launches, fk.launches) != (cfg.n_layers * (i + 1),
+                                          n_sites * (i + 1)):
+            raise AssertionError(f"prefill {i}: ssd {sk.launches}, "
+                                 f"flash {fk.launches} launches")
+
     torch.cuda.reset_peak_memory_stats()
     sk.launches = fk.launches = 0
-    prefill_ms = []
     with torch.no_grad():
-        for i in range(Z_PREFILLS):
-            tokens = batch(Z_PREFILL_B, Z_PREFILL_S)
-            t0 = time.perf_counter()
-            nxt = prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            if (sk.launches, fk.launches) != (cfg.n_layers * (i + 1),
-                                              n_sites * (i + 1)):
-                raise AssertionError(f"prefill {i}: ssd {sk.launches}, "
-                                     f"flash {fk.launches} launches")
-            if nxt.shape != (Z_PREFILL_B,) or not bool(
-                    ((nxt >= 0) & (nxt < cfg.vocab)).all()):
-                raise AssertionError(f"prefill tokens {nxt.tolist()}")
+        prefill_ms = run_prefills(prefill, params, batch, ls.prefills,
+                                  ls.prefill_b, ls.prefill_s, cfg.vocab,
+                                  check)
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = {"mamba2_scan": sk.launches, "flash_attention": fk.launches}
 
     torch.cuda.reset_peak_memory_stats()
-    prompts = batch(Z_DECODE_B, Z_PROMPT)
-    cache = model.init_cache(Z_DECODE_B, Z_CACHE_LEN)
-    step_ms, out = [], []
-    toks = prompts[:, :1]
+    prompts = batch(ls.decode_b, ls.prompt)
     with torch.no_grad():
-        for t in range(Z_PROMPT + Z_NEW - 1):
-            pos = torch.full((Z_DECODE_B,), t, dtype=torch.int32,
-                             device="cuda")
-            t0 = time.perf_counter()
-            nxt, cache = serve(params, cache, {"tokens": toks, "pos": pos})
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if t >= Z_PROMPT - 1:
-                out.append(nxt)
-            toks = (prompts[:, t + 1:t + 2] if t + 1 < Z_PROMPT
-                    else nxt[:, None].long())
+        step_ms, cache, last = run_decode(
+            serve, params, model.init_cache(ls.decode_b, ls.cache_len),
+            prompts, ls.new, cfg.vocab)
     decode_peak = torch.cuda.max_memory_allocated()
     if sk.launches != launches["mamba2_scan"]:
         raise AssertionError("decode launched the SSD-scan kernel")
-    gen_toks = torch.stack(out, dim=1)
-    if gen_toks.shape != (Z_DECODE_B, Z_NEW) or not bool(
-            ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
-        raise AssertionError(f"decode tokens {gen_toks.tolist()}")
     for name in ("ssm", "conv"):
         if not torch.isfinite(cache[name]).all():
             raise AssertionError(f"non-finite {name} cache")
     for name in ("k", "v"):
         if not torch.isfinite(cache["attn"][name]).all():
             raise AssertionError(f"non-finite attention {name} cache")
-    if cache["attn"]["key_pos"].max().item() != Z_PROMPT + Z_NEW - 2:
+    if cache["attn"]["key_pos"].max().item() != ls.prompt + ls.new - 2:
         raise AssertionError("ring cache key positions")
 
     decode_s = sum(step_ms) / 1e3
     # tokens/s of the prefills after the first, which carries the warm-up
-    prefill_tps = Z_PREFILL_B * Z_PREFILL_S * (Z_PREFILLS - 1) \
+    prefill_tps = ls.prefill_b * ls.prefill_s * (ls.prefills - 1) \
         / (sum(prefill_ms[1:]) / 1e3)
     log("zamba2_serve", arch="zamba2-1.2b", layers=cfg.n_layers,
         attn_sites=n_sites, d_model=cfg.d_model, dtype=cfg.compute_dtype,
         params=model.param_count(),
-        prefill_batch=Z_PREFILL_B, prefill_seq=Z_PREFILL_S,
+        prefill_batch=ls.prefill_b, prefill_seq=ls.prefill_s,
         prefill_ms=[round(x, 3) for x in prefill_ms],
         prefill_tokens_per_s=f"{prefill_tps:.1f}",
-        decode_batch=Z_DECODE_B, decode_steps=len(step_ms),
+        decode_batch=ls.decode_b, decode_steps=len(step_ms),
         cache_len=cache["attn"]["k"].shape[2],
         decode_ms_per_step=f"{np.mean(step_ms):.3f}",
         decode_ms_median=f"{np.median(step_ms):.3f}",
-        decode_tokens_per_s=f"{Z_DECODE_B * len(step_ms) / decode_s:.1f}",
+        decode_tokens_per_s=f"{ls.decode_b * len(step_ms) / decode_s:.1f}",
         setup_s=f"{setup_s:.3f}", setup_peak_gb=f"{setup_peak / 1e9:.3f}",
         prefill_peak_gb=f"{prefill_peak / 1e9:.3f}",
         decode_peak_gb=f"{decode_peak / 1e9:.3f}", launches=launches)
     if profile:
         # outside the counted run: one prefill, then 8 decode steps
-        tokens = batch(Z_PREFILL_B, Z_PREFILL_S)
+        tokens = batch(ls.prefill_b, ls.prefill_s)
         with torch.no_grad():
             profile_window("zamba2 prefill x1",
                            lambda: prefill(params, {"tokens": tokens}))
             profile_window("zamba2 decode x8", lambda: [
-                serve(params, cache, {"tokens": toks, "pos": pos})
-                for _ in range(8)])
+                serve(params, cache, last) for _ in range(8)])
     del params, cache
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
+# --------------------------------------------------------- phases 5b, 6b
+class Routes:
+    """While active, keeps what the port's `layers.moe_block` records of
+    each call (`layers.ROUTE_LOG`): router probabilities, chosen experts
+    (top_e [T, k]) and which choices kept a slot, on the card, no sync.
+    Calls come in layer order, so call i of a model of L layers is layer
+    i mod L."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.calls = layers.ROUTE_LOG = []
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.ROUTE_LOG = None
+
+    @property
+    def top_e(self) -> list:
+        return [c["top_e"] for c in self.calls]
+
+    def min_margin(self) -> float:
+        """The smallest gap between the k-th and (k+1)-th router
+        probability met: a choice whose gap is at fp32 rounding may flip
+        between two runs of the same function."""
+        gaps = []
+        for c in self.calls:
+            k = c["top_e"].shape[1]
+            top = torch.topk(c["probs"], k + 1, dim=-1).values
+            gaps.append((top[:, k - 1] - top[:, k]).min())
+        return torch.stack(gaps).min().item()
+
+    def dropped(self, layer: int = 0, n_layers: int = 1) -> tuple:
+        """(choices dropped by capacity, choices) over the calls of one
+        layer, or over all calls with the defaults."""
+        calls = self.calls[layer::n_layers]
+        return (sum(int((~c["keep"]).sum()) for c in calls),
+                sum(c["keep"].numel() for c in calls))
+
+    def max_load(self, layer: int, n_layers: int, seqs: int, experts: int,
+                 joined: bool = False) -> tuple:
+        """The most-chosen expert's choices over an even share's, over
+        each call's batch and within each of its ``seqs`` sequences (the
+        mean over the layer's calls); ``joined`` takes the layer's calls
+        as one, each sequence's choices over all of them (decode steps)."""
+        calls = [c["top_e"].reshape(seqs, -1)
+                 for c in self.calls[layer::n_layers]]
+        if joined:
+            calls = [torch.cat(calls, dim=1)]
+        batch, per_seq = [], []
+        for e in calls:
+            one = torch.nn.functional.one_hot(e, experts).sum(1).float()
+            even = e.shape[1] / experts
+            batch.append((one.sum(0).max() / (even * seqs)).item())
+            per_seq.append((one.max(1).values / even).mean().item())
+        return float(np.mean(batch)), float(np.mean(per_seq))
+
+
+def phase_moe_parity(gen: torch.Generator) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s = 2, 256
+    launches = {}
+    for arch in ("olmoe-1b-7b", "granite-moe-3b-a800m"):
+        cfg = get_config(arch)
+        m = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+        cfg = cfg.replace(n_layers=2, compute_dtype="float32",
+                          attn_impl="pallas", moe=m)
+        model = get_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(gen, device="cuda")
+        tokens = torch.from_numpy(np.random.RandomState(2).randint(
+            0, cfg.vocab, (b, s))).cuda()
+        fk.launches = 0
+        with torch.no_grad():
+            with Routes() as fwd:
+                full = model.forward(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+            if fk.launches != cfg.n_layers:
+                raise AssertionError(f"{arch} forward launched flash "
+                                     f"{fk.launches}")
+            cache = model.init_cache(b, s)
+            steps = []
+            with Routes() as dec:
+                for t in range(s):
+                    logits, cache = model.decode_step(
+                        params, cache, {"tokens": tokens[:, t:t + 1],
+                                        "pos": torch.full(
+                                            (b,), t, dtype=torch.int32,
+                                            device="cuda")})
+                    steps.append(logits[:, 0])
+            stepped = torch.stack(steps, dim=1)
+            torch.cuda.synchronize()
+        if fk.launches != cfg.n_layers:
+            raise AssertionError(f"{arch}: the stepped decode launched flash")
+        # the decode's choices of step t, layer l are tokens (:, t) of the
+        # forward's layer l; agreement = shared choices / all choices
+        agree = 0
+        for li in range(cfg.n_layers):
+            dec_e = torch.stack(dec.top_e[li::cfg.n_layers], dim=1)
+            one = [torch.nn.functional.one_hot(e.reshape(b * s, m.top_k),
+                                               m.num_experts).sum(1)
+                   for e in (fwd.top_e[li], dec_e)]
+            agree += int((one[0] * one[1]).sum())
+        agree_share = agree / (cfg.n_layers * b * s * m.top_k)
+        margin = min(fwd.min_margin(), dec.min_margin())
+        drops = fwd.dropped()[0] + dec.dropped()[0]
+        log("moe_parity", arch=arch, routing_agree_share=f"{agree_share:.6f}",
+            min_topk_margin=f"{margin:.3e}", dropped=drops)
+        err = max_err(full, stepped, torch.float32,
+                      f"{arch} forward vs stepped decode", 2e-3)
+        same = (full.argmax(-1) == stepped.argmax(-1)).float().mean().item()
+        if same != 1.0 or drops:
+            raise AssertionError(f"{arch} greedy tokens differ: {same:.4f} "
+                                 f"of positions agree, {drops} dropped")
+        launches[f"{arch} moe_parity"] = {"flash_attention": fk.launches}
+        log("moe_parity", arch=arch, layers=cfg.n_layers, dtype="float32",
+            experts=f"{m.num_experts}/{m.e_pad} top-{m.top_k}",
+            capacity_factor=m.capacity_factor, batch=b, seq=s,
+            max_abs_err=f"{err:.3e}",
+            max_abs_logit=f"{full.abs().max().item():.3e}",
+            tokens_equal=True,
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            launches=launches[f"{arch} moe_parity"])
+        del params, cache, full, stepped, fwd, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_serve(gen: torch.Generator, profile: bool = False) -> dict:
+    """olmoe-1b-7b as published through `make_prefill_step` and
+    `make_serve_step`, with the zamba2 serve phase's traffic; the share of
+    expert choices dropped by capacity, in all and per layer, and how
+    unevenly each layer loads its experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model, layers
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    ls = LONG_SERVE
+    cfg = get_config("olmoe-1b-7b").replace(attn_impl="pallas")
+    model, m = get_model(cfg), cfg.moe
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # fp32 init, then the serving copy in the compute dtype
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      model.init(gen, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    rng = np.random.RandomState(0)
+
+    def batch(b, s):
+        return torch.from_numpy(rng.randint(0, cfg.vocab, (b, s))).cuda()
+
+    def check(i):
+        if fk.launches != cfg.n_layers * (i + 1):
+            raise AssertionError(f"prefill {i}: flash {fk.launches} "
+                                 "launches")
+
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    with torch.no_grad(), Routes() as pre_routes:
+        prefill_ms = run_prefills(prefill, params, batch, ls.prefills,
+                                  ls.prefill_b, ls.prefill_s, cfg.vocab,
+                                  check)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": fk.launches}
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = batch(ls.decode_b, ls.prompt)
+    with torch.no_grad(), Routes() as dec_routes:
+        step_ms, cache, last = run_decode(
+            serve, params, model.init_cache(ls.decode_b, ls.cache_len),
+            prompts, ls.new, cfg.vocab)
+    decode_peak = torch.cuda.max_memory_allocated()
+    if fk.launches != launches["flash_attention"]:
+        raise AssertionError("decode launched the flash kernel")
+    for name in ("k", "v"):
+        if not torch.isfinite(cache[name]).all():
+            raise AssertionError(f"non-finite {name} cache")
+    if cache["key_pos"].max().item() != ls.prompt + ls.new - 2:
+        raise AssertionError("ring cache key positions")
+    pre_drop, pre_all = pre_routes.dropped()
+    dec_drop, dec_all = dec_routes.dropped()
+    if pre_all != (ls.prefills * cfg.n_layers * ls.prefill_b * ls.prefill_s
+                   * m.top_k):
+        raise AssertionError(f"prefill routed {pre_all} choices")
+
+    decode_s = sum(step_ms) / 1e3
+    # tokens/s of the prefills after the first, which carries the warm-up
+    prefill_tps = ls.prefill_b * ls.prefill_s * (ls.prefills - 1) \
+        / (sum(prefill_ms[1:]) / 1e3)
+    log("moe_serve", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, experts=f"{m.num_experts} top-{m.top_k}",
+        d_expert=m.d_expert, dtype=cfg.compute_dtype,
+        params=model.param_count(), active_params=model.active_param_count(),
+        prefill_batch=ls.prefill_b, prefill_seq=ls.prefill_s,
+        prefill_ms=[round(x, 3) for x in prefill_ms],
+        prefill_tokens_per_s=f"{prefill_tps:.1f}",
+        prefill_capacity=layers.moe_capacity(
+            ls.prefill_b * ls.prefill_s, m),
+        prefill_dropped_share=f"{pre_drop / pre_all:.6f}",
+        decode_batch=ls.decode_b, decode_steps=len(step_ms),
+        cache_len=cache["k"].shape[2],
+        decode_ms_per_step=f"{np.mean(step_ms):.3f}",
+        decode_ms_median=f"{np.median(step_ms):.3f}",
+        decode_tokens_per_s=f"{ls.decode_b * len(step_ms) / decode_s:.1f}",
+        decode_capacity=layers.moe_capacity(ls.decode_b, m),
+        decode_dropped_share=f"{dec_drop / dec_all:.6f}",
+        setup_s=f"{setup_s:.3f}", setup_peak_gb=f"{setup_peak / 1e9:.3f}",
+        prefill_peak_gb=f"{prefill_peak / 1e9:.3f}",
+        decode_peak_gb=f"{decode_peak / 1e9:.3f}", launches=launches)
+    # per layer: the dropped share, and the most-chosen expert's load over
+    # an even share's, over the batch and within each sequence (prefill:
+    # a call's 4096-token sequences; decode: each sequence's 191 steps)
+    n = cfg.n_layers
+    for what, routes, seqs, joined in (
+            ("prefill", pre_routes, ls.prefill_b, False),
+            ("decode", dec_routes, ls.decode_b, True)):
+        drop = [routes.dropped(li, n) for li in range(n)]
+        load = [routes.max_load(li, n, seqs, m.num_experts, joined)
+                for li in range(n)]
+        log("moe_serve", routing=what,
+            dropped_share_per_layer=[round(d / t, 6) for d, t in drop],
+            max_load_batch_per_layer=[round(x, 4) for x, _ in load],
+            max_load_seq_per_layer=[round(x, 4) for _, x in load],
+            min_topk_margin=f"{routes.min_margin():.3e}")
+    if profile:
+        # outside the counted run: one prefill, then 8 decode steps
+        tokens = batch(ls.prefill_b, ls.prefill_s)
+        with torch.no_grad():
+            profile_window("olmoe prefill x1",
+                           lambda: prefill(params, {"tokens": tokens}))
+            profile_window("olmoe decode x8", lambda: [
+                serve(params, cache, last) for _ in range(8)])
+    del params, cache, pre_routes, dec_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 7
-def phase_train_parity(gen: torch.Generator) -> None:
+def phase_train_parity(gen: torch.Generator) -> dict:
     """One train step's loss, grad norm and gradients with and without the
     kernels, from the same state, fp32 with TF32 off: smollm-360m at full
-    width (2 layers) through the flash kernel against the einsum path, and
+    width (2 layers) through the flash kernel against the einsum path;
     zamba2-1.2b at full width (7 layers) through the SSD-scan and flash
-    kernels against the same step on the CPU (plain versions)."""
+    kernels, and olmoe-1b-7b at full width (2 layers; loss = ce + aux),
+    through the flash kernel, against the same step on the CPU (plain
+    versions).  Returns each step's launches."""
     from repro_torch.checkpoint.serialize import flatten_tree
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1038,14 +1455,15 @@ def phase_train_parity(gen: torch.Generator) -> None:
     b, s = 2, 256
 
     def grads(cfg, params, tokens):
-        loss, _, g = make_grad_fn(get_model(cfg))(
+        loss, parts, g = make_grad_fn(get_model(cfg))(
             params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
-        return (float(loss), float(global_norm(g)),
+        return (float(loss), float(parts["aux"]), float(global_norm(g)),
                 {k: v.cpu() for k, v in flatten_tree(g).items()})
 
     def compare(arch, kern, plain, launches):
-        (lk, nk, gk), (lp, np_, gp) = kern, plain
+        (lk, ak, nk, gk), (lp, ap, np_, gp) = kern, plain
         tol = GRAD_TOL[arch]
+        aux_err = abs(ak - ap) / abs(ap) if ap else abs(ak - ap)
         errs = {}
         for name, ref in gp.items():
             if not torch.isfinite(gk[name]).all():
@@ -1054,13 +1472,15 @@ def phase_train_parity(gen: torch.Generator) -> None:
                           / ref.abs().max().clamp_min(1e-30)).item()
         worst = max(errs, key=errs.get)
         loss_err, norm_err = abs(lk - lp) / abs(lp), abs(nk - np_) / np_
-        if errs[worst] > tol or loss_err > tol or norm_err > tol:
+        if max(errs[worst], loss_err, norm_err, aux_err) > tol:
             raise AssertionError(
                 f"{arch} train step: kernels vs plain, loss {lk} vs {lp}, "
+                f"aux {ak} vs {ap}, "
                 f"grad norm {nk} vs {np_}, worst gradient {worst} "
                 f"{errs[worst]:.3e} of its largest entry (tol {tol})")
         log("train_parity", arch=arch, loss=f"{lk:.6f}",
-            loss_plain=f"{lp:.6f}", grad_norm=f"{nk:.6f}",
+            loss_plain=f"{lp:.6f}", aux=f"{ak:.6e}", aux_plain=f"{ap:.6e}",
+            grad_norm=f"{nk:.6f}",
             grad_norm_plain=f"{np_:.6f}", loss_rel_err=f"{loss_err:.3e}",
             grad_norm_rel_err=f"{norm_err:.3e}", leaves=len(errs),
             worst_leaf=worst, worst_rel_err=f"{errs[worst]:.3e}", tol=tol,
@@ -1078,7 +1498,10 @@ def phase_train_parity(gen: torch.Generator) -> None:
     plain = grads(cfg.replace(attn_impl="xla"), params, tokens)
     if fk.launches != cfg.n_layers:
         raise AssertionError("the einsum path launched the flash kernel")
-    compare("smollm-360m", kern, plain, {"flash_attention": fk.launches})
+    launches = {"smollm-360m train_parity": {"flash_attention":
+                                             fk.launches}}
+    compare("smollm-360m", kern, plain,
+            launches["smollm-360m train_parity"])
     del params, kern, plain
 
     cfg = get_config("zamba2-1.2b").replace(n_layers=7,
@@ -1088,20 +1511,46 @@ def phase_train_parity(gen: torch.Generator) -> None:
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s + 1))).cuda()
     fk.launches = sk.launches = 0
     kern = grads(cfg, params, tokens)
-    launches = {"mamba2_scan": sk.launches, "flash_attention": fk.launches}
+    z_launches = {"mamba2_scan": sk.launches, "flash_attention": fk.launches}
     # remat "dots" (the published config's) runs each Mamba2 layer's
     # forward again in backward, scan included; the shared block is not
     # rematerialised
-    if launches != {"mamba2_scan": 2 * cfg.n_layers, "flash_attention": 1}:
-        raise AssertionError(f"zamba2 step launched {launches}")
+    if z_launches != {"mamba2_scan": 2 * cfg.n_layers, "flash_attention": 1}:
+        raise AssertionError(f"zamba2 step launched {z_launches}")
+    launches["zamba2-1.2b train_parity"] = z_launches
     t0 = time.perf_counter()
     plain = grads(cfg, tree_map(lambda t: t.cpu(), params), tokens.cpu())
     cpu_s = time.perf_counter() - t0
     log("train_parity", arch="zamba2-1.2b", cpu_step_s=f"{cpu_s:.3f}")
-    compare("zamba2-1.2b", kern, plain, launches)
+    compare("zamba2-1.2b", kern, plain, z_launches)
     del params, kern, plain
+
+    # olmoe at its published remat "dots": every layer's attention runs
+    # again in backward, flash included
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=2,
+                                            compute_dtype="float32",
+                                            attn_impl="pallas")
+    params = get_model(cfg).init(gen, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (b, s + 1))).cuda()
+    fk.launches = 0
+    with Routes() as routes:
+        kern = grads(cfg, params, tokens)
+    o_launches = {"flash_attention": fk.launches}
+    if fk.launches != 2 * cfg.n_layers:
+        raise AssertionError(f"olmoe step launched {o_launches}")
+    launches["olmoe-1b-7b train_parity"] = o_launches
+    t0 = time.perf_counter()
+    plain = grads(cfg, tree_map(lambda t: t.cpu(), params), tokens.cpu())
+    cpu_s = time.perf_counter() - t0
+    drop, total = routes.dropped()
+    log("train_parity", arch="olmoe-1b-7b", cpu_step_s=f"{cpu_s:.3f}",
+        min_topk_margin=f"{routes.min_margin():.3e}",
+        dropped_share=f"{drop / total:.6f}")
+    compare("olmoe-1b-7b", kern, plain, o_launches)
+    del params, kern, plain, routes
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1277,12 +1726,21 @@ def main() -> int:
               "GPU only", file=sys.stderr)
         return 1
     # with no arguments every phase runs and the result lines are printed;
-    # naming phases (kernels, parity, serve, zamba2_parity, zamba2_serve,
-    # train_parity, train, profile) runs just those, to debug or to trace a
-    # serve or train phase; profile alone traces the qwen2-7b serve phase
-    phases = sys.argv[1:] or ["kernels", "parity", "serve", "zamba2_parity",
-                              "zamba2_serve", "train_parity", "train"]
+    # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
+    # zamba2_serve, moe_parity, moe_serve, train_parity, train, profile)
+    # runs just those, to debug or to trace a serve or train phase; profile
+    # alone traces the qwen2-7b serve phase
+    phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
+                              "zamba2_parity", "zamba2_serve", "moe_parity",
+                              "moe_serve", "train_parity", "train"]
     profile = "profile" in phases
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("time", of=name, seconds=f"{time.perf_counter() - t0:.3f}")
+        return out
 
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
@@ -1291,20 +1749,30 @@ def main() -> int:
     # each path's launches, counted from 0 just before it is driven
     launches = {}
     if "kernels" in phases:
-        kernels = phase_kernels(gen(2))
+        kernels = timed("kernels", phase_kernels, gen(2))
     if "parity" in phases:
-        phase_parity(gen(1))
-    if "serve" in phases or (profile and not {"zamba2_serve", "train"}
-                             & set(phases)):
-        launches["qwen2-7b serve"] = phase_serve(gen(0), profile=profile)
+        timed("parity", phase_parity, gen(1))
+    if "serve" in phases or (profile and not {"zamba2_serve", "moe_serve",
+                                              "train"} & set(phases)):
+        launches["qwen2-7b serve"] = timed("serve", phase_serve, gen(0),
+                                           profile)
+    if "dense_parity" in phases:
+        launches.update(timed("dense_parity", phase_dense_parity, gen(6)))
     if "zamba2_parity" in phases:
-        phase_zamba2_parity(gen(3))
+        timed("zamba2_parity", phase_zamba2_parity, gen(3))
     if "zamba2_serve" in phases:
-        launches["zamba2-1.2b serve"] = phase_zamba2_serve(gen(0), profile)
+        launches["zamba2-1.2b serve"] = timed(
+            "zamba2_serve", phase_zamba2_serve, gen(0), profile)
+    if "moe_parity" in phases:
+        launches.update(timed("moe_parity", phase_moe_parity, gen(7)))
+    if "moe_serve" in phases:
+        launches["olmoe-1b-7b serve"] = timed("moe_serve", phase_moe_serve,
+                                              gen(0), profile)
     if "train_parity" in phases:
-        phase_train_parity(gen(5))
+        launches.update(timed("train_parity", phase_train_parity, gen(5)))
     if "train" in phases:
-        launches["smollm-360m train"] = phase_train(profile)
+        launches["smollm-360m train"] = timed("train", phase_train, profile)
+    log("time", of="all", seconds=f"{time.perf_counter() - t_start:.3f}")
     if sys.argv[1:]:
         return 0
     for name, kern in kernels.items():

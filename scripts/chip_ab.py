@@ -17,6 +17,8 @@ how many pairs the change won (lower is better):
 
 - serve: mean decode ms per step, the median prefill ms of the requests
   after the first two (the first carries the warm-up), tokens/s;
+- zamba2_serve: mean decode ms per step, the median prefill ms of the
+  calls after the first;
 - kernels: the paged kernel's device ms and the host us per call at the
   serve phase's decode shape, with a table of scattered pages and with
   the shared-prefix table;
@@ -48,6 +50,12 @@ def metrics(out: str) -> dict:
             found["prefill_ms"] = statistics.median(prefill[2:])
             found["tokens_per_s"] = float(re.search(
                 " tokens_per_s=" + NUM, line).group(1))
+        if line.startswith("[zamba2_serve]"):
+            prefill = [float(x) for x in re.search(
+                r"prefill_ms=\[([^\]]*)\]", line).group(1).split(",")]
+            found["zamba2_decode_ms"] = float(re.search(
+                "decode_ms_per_step=" + NUM, line).group(1))
+            found["zamba2_prefill_ms"] = statistics.median(prefill[1:])
         m = re.match(r"\[kernels\] kernel=paged_attention timing=(\w+) ms="
                      + NUM + ".* host_us=" + NUM, line)
         if m:

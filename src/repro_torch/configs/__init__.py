@@ -8,12 +8,19 @@ from typing import List
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 
-from . import qwen2_7b, smollm_360m, zamba2_1p2b
+from . import (command_r_35b, granite_moe_3b_a800m, llava_next_34b,
+               mistral_large_123b, olmoe_1b_7b, qwen2_7b, smollm_360m,
+               zamba2_1p2b)
 
 _MODULES = {
+    "mistral-large-123b": mistral_large_123b,
+    "command-r-35b": command_r_35b,
     "qwen2-7b": qwen2_7b,
     "smollm-360m": smollm_360m,
+    "llava-next-34b": llava_next_34b,
     "zamba2-1.2b": zamba2_1p2b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "granite-moe-3b-a800m": granite_moe_3b_a800m,
 }
 
 ARCHS: List[str] = list(_MODULES)

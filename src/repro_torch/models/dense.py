@@ -1,10 +1,12 @@
-"""Dense GQA transformer (qwen2 / smollm) in plain PyTorch.
+"""Dense GQA transformer (mistral-large / command-r / qwen2 / smollm) and
+the LLaVA VLM backbone (dense + projected patch embeddings), in plain
+PyTorch.
 
-Sequential pre-norm blocks.  The JAX package's `lax.scan` over the stacked
-layer axis is a Python loop here, under the config's remat policy.
-Decode runs one token against the ring KV cache of `cache_spec`, written
-in place.  Parallel blocks (command-r) and the VLM patch embeddings come
-with their own slices.
+Sequential pre-norm blocks by default; `parallel_block=True` (command-r)
+computes attention and FFN from one shared norm and sums the branches.
+The JAX package's `lax.scan` over the stacked layer axis is a Python loop
+here, under the config's remat policy.  Decode runs one token against the
+ring KV cache of `cache_spec`, written in place.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from . import layers as L
 from .common import (P, attn_cache_spec, decode_window, layer_views,
-                     padded_vocab, remat, stacked)
+                     padded_vocab, remat, stacked, to_dtype)
 
 
 def layer_schema(cfg) -> Dict[str, P]:
@@ -36,11 +38,12 @@ def layer_schema(cfg) -> Dict[str, P]:
         s["wq_b"] = P((cfg.n_heads * hd,), ("heads",), init="zeros")
         s["wk_b"] = P((cfg.n_kv_heads * hd,), ("kv_heads",), init="zeros")
         s["wv_b"] = P((cfg.n_kv_heads * hd,), ("kv_heads",), init="zeros")
+    if cfg.parallel_block:
+        del s["ln2"]                      # one shared norm per block
     return s
 
 
 def schema(cfg) -> Dict[str, Any]:
-    check_supported(cfg)
     v = padded_vocab(cfg)
     s: Dict[str, Any] = {
         "embedding": P((v, cfg.d_model), ("vocab", "embed")),
@@ -49,17 +52,21 @@ def schema(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         s["unembedding"] = P((v, cfg.d_model), ("vocab", "embed"))
+    if cfg.vlm is not None:
+        s["vision_proj"] = P((cfg.vlm.vision_dim, cfg.d_model),
+                             (None, "embed"), init="scaled")
     return s
 
 
-def check_supported(cfg) -> None:
-    if cfg.parallel_block:
-        raise ValueError(f"{cfg.name}: parallel blocks are not ported yet "
-                         "(they come with the command-r slice)")
-
-
 def _block(params, x, cfg, *, positions, cache=None, sliding_window=None):
-    """One sequential pre-norm transformer block; returns (x, new_cache)."""
+    """One transformer block; returns (x, new_cache)."""
+    if cfg.parallel_block:
+        y = L.rms_norm(x, params["ln"], cfg.norm_eps)
+        attn, new_cache = L.gqa_block(params, y, cfg, positions=positions,
+                                      cache=cache, norm=False,
+                                      sliding_window=sliding_window)
+        return x + attn + L.swiglu(params, y, cfg, pre_normed=True), \
+            new_cache
     attn, new_cache = L.gqa_block(params, x, cfg, positions=positions,
                                   cache=cache, sliding_window=sliding_window)
     x = x + attn
@@ -67,10 +74,18 @@ def _block(params, x, cfg, *, positions, cache=None, sliding_window=None):
 
 
 def _embed_inputs(params, batch, cfg):
-    """Token embeddings and their positions (text only)."""
+    """Token embeddings and their positions, with the projected patch
+    embeddings [B, P, vision_dim] prepended for the VLM backbone (the
+    vision tower itself is a stub, as in the JAX package)."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    return L.embed(params, tokens, cfg), positions
+    x = L.embed(params, tokens, cfg)
+    if cfg.vlm is not None and "patch_embeds" in batch:
+        dt = to_dtype(cfg.compute_dtype)
+        patches = L.cast(batch["patch_embeds"], dt) \
+            @ L.cast(params["vision_proj"], dt)
+        x = torch.cat([patches, x], dim=1)
+    positions = torch.arange(x.shape[1], device=tokens.device)[None, :]
+    return x, positions
 
 
 def layer(params, i: int) -> Dict[str, torch.Tensor]:
@@ -79,7 +94,6 @@ def layer(params, i: int) -> Dict[str, torch.Tensor]:
 
 
 def forward(params, batch, cfg) -> torch.Tensor:
-    check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
 
     def body(p, x):
@@ -90,7 +104,10 @@ def forward(params, batch, cfg) -> torch.Tensor:
     for p in layer_views(params["layers"]):
         x = body(p, x)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg)
+    logits = L.unembed(params, x, cfg)
+    if cfg.vlm is not None and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    return logits
 
 
 # ------------------------------------------------------------------ decode
@@ -101,7 +118,6 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, P]:
 def decode_step(params, cache, batch, cfg):
     """One token: batch = {"tokens": [B, 1], "pos": [B]}.  Returns (logits
     [B, 1, V], cache); the cache's tensors are updated in place."""
-    check_supported(cfg)
     x = L.embed(params, batch["tokens"], cfg)
     pos = batch["pos"]
     for i in range(cfg.n_layers):

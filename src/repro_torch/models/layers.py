@@ -172,15 +172,16 @@ def attn_out(params, attn: torch.Tensor, cfg) -> torch.Tensor:
 
 def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               cache: Optional[Tuple] = None,
-              sliding_window: Optional[int] = None):
+              sliding_window: Optional[int] = None, norm: bool = True):
     """Pre-norm GQA attention block.  Returns (out, new_cache).
 
     Train/prefill: cache=None, a full sequence at positions [B|1, S].
     Decode: x is [B, 1, d]; cache = (k_cache, v_cache, key_pos) in the
     ring layout of `decode_attention`, written in place by `cache_write`;
     positions [B] are the absolute positions of the tokens written.
+    ``norm=False`` skips the input norm (parallel blocks norm once).
     """
-    y = rms_norm(x, params["ln"], cfg.norm_eps)
+    y = rms_norm(x, params["ln"], cfg.norm_eps) if norm else x
     if cache is None:
         q, k, v = qkv(params, y, cfg, positions)
         attn = attention(q, k, v, causal=True, sliding_window=sliding_window,
@@ -196,12 +197,93 @@ def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
 
 # ------------------------------------------------------------------- MLPs
-def swiglu(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def swiglu(params, x: torch.Tensor, cfg,
+           pre_normed: bool = False) -> torch.Tensor:
     dt = to_dtype(cfg.compute_dtype)
-    y = rms_norm(x, params["ln"], cfg.norm_eps)
+    y = x if pre_normed else rms_norm(x, params["ln"], cfg.norm_eps)
     h = F.silu(y @ cast(params["w_gate"], dt)) * (y @ cast(params["w_up"],
                                                           dt))
     return h @ cast(params["w_down"], dt)
+
+
+# -------------------------------------------------------------------- MoE
+def moe_route(router: torch.Tensor, flat: torch.Tensor, m):
+    """Router of a top-k MoE layer, in fp32: softmax over the real
+    experts, the top k renormalised, and the Switch load-balancing loss.
+    flat: [T, d].  Returns (probs [T, experts], top_p [T, k],
+    top_e [T, k], aux)."""
+    probs = torch.softmax(flat.float() @ router.float(), dim=-1)
+    top_p, top_e = torch.topk(probs, m.top_k, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    ce = F.one_hot(top_e[:, 0], m.num_experts).float().mean(dim=0)
+    aux = m.num_experts * (probs.mean(dim=0) * ce).sum() \
+        * m.router_aux_weight
+    return probs, top_p, top_e, aux
+
+
+def moe_capacity(n_tok: int, m) -> int:
+    """Slots per expert: ceil(tokens · k / experts · capacity_factor),
+    in Python, as the JAX package computes it."""
+    return max(int(np.ceil(n_tok * m.top_k / m.num_experts
+                           * m.capacity_factor)), 1)
+
+
+def moe_slots(top_e: torch.Tensor, e_pad: int) -> torch.Tensor:
+    """Slot of each (token, choice) within its expert, in token-major
+    order (0-based): a running count of a one-hot over the padded
+    experts.  The one-hot is laid out [experts, T·k] so that the count
+    runs along the inner dim: down the outer dim of a [T·k, experts]
+    one-hot a cumsum is one serial pass per expert (~50 ms a layer at
+    olmoe's 4 × 4096 prefill on an H100).  top_e: [T, k] → [T·k]."""
+    flat_e = top_e.reshape(-1)
+    onehot = torch.arange(e_pad, device=top_e.device)[:, None] == flat_e
+    return onehot.cumsum(dim=1).gather(0, flat_e[None])[0] - 1
+
+
+# While a list, every `moe_block` call appends what it routed: "probs"
+# [T, experts] (detached), "top_e" [T, k] and "keep" [T·k] (the choices
+# that got a slot), as tensors on their device with no sync.  For
+# observing routing from outside (drop shares, agreement between two
+# runs); None, the default, records nothing.
+ROUTE_LOG = None
+
+
+def moe_block(params, x: torch.Tensor, cfg):
+    """Top-k expert routing with a fixed capacity per expert (gather and
+    scatter dispatch), as the JAX package's `moe_block`.  Returns (out,
+    aux).  Choices past an expert's capacity are dropped: they go to an
+    overflow row of the dispatch buffer, which is cut off, and get no
+    weight in the combine.  The expert products are batched over the
+    padded experts, whose weights no choice reaches."""
+    m = cfg.moe
+    dt = to_dtype(cfg.compute_dtype)
+    y = rms_norm(x, params["ln"], cfg.norm_eps)
+    b, s, d = y.shape
+    n_tok = b * s
+    flat = y.reshape(n_tok, d)
+    probs, top_p, top_e, aux = moe_route(params["router"], flat, m)
+    capacity = moe_capacity(n_tok, m)
+    flat_e = top_e.reshape(-1)                            # [T·k]
+    slot = moe_slots(top_e, m.e_pad)
+    keep = slot < capacity
+    if ROUTE_LOG is not None:
+        ROUTE_LOG.append({"probs": probs.detach(), "top_e": top_e,
+                          "keep": keep})
+    tok_idx = torch.arange(n_tok * m.top_k, device=x.device) // m.top_k
+    e_idx = torch.where(keep, flat_e, m.e_pad)            # overflow row
+    s_idx = torch.where(keep, slot, 0)
+    expert_in = torch.zeros((m.e_pad + 1, capacity, d), dtype=dt,
+                            device=x.device)
+    expert_in = expert_in.index_put((e_idx, s_idx),
+                                    cast(flat[tok_idx], dt))[:-1]
+    h = F.silu(torch.bmm(expert_in, cast(params["w_gate"], dt))) \
+        * torch.bmm(expert_in, cast(params["w_up"], dt))
+    expert_out = torch.bmm(h, cast(params["w_down"], dt))
+    gathered = expert_out[torch.where(keep, flat_e, 0), s_idx]   # [T·k, d]
+    weight = torch.where(keep, top_p.reshape(-1), 0.0).to(dt)
+    out = torch.zeros((n_tok, d), dtype=dt, device=x.device).index_add(
+        0, tok_idx, gathered * weight[:, None])
+    return out.reshape(b, s, d), aux
 
 
 # -------------------------------------------------------------- embeddings

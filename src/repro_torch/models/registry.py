@@ -7,10 +7,15 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from . import dense, mamba2
+from . import dense, mamba2, moe
 from .common import P, init_params, resolve_device
 
-_MODULES = {"dense": dense, "mamba2_hybrid": mamba2}
+_MODULES = {
+    "dense": dense,
+    "vlm": dense,                   # LLaVA backbone = dense + patch proj
+    "moe": moe,
+    "mamba2_hybrid": mamba2,
+}
 
 
 @dataclass(frozen=True)
@@ -39,6 +44,14 @@ class Model:
                 return int(np.prod(node.shape))
             return sum(count(v) for v in node.values())
         return count(self.schema())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k of the expert FFNs)."""
+        m = self.cfg.moe
+        if m is None:
+            return self.param_count()
+        expert = 3 * self.cfg.d_model * m.d_expert * self.cfg.n_layers
+        return self.param_count() - expert * (m.e_pad - m.top_k)
 
     def forward(self, params, batch) -> torch.Tensor:
         return self.module.forward(params, batch, self.cfg)

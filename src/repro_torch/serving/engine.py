@@ -6,9 +6,10 @@ forking is `copy` — while the device pools play the storage servers.  The
 decode step hands the page table straight to the paged-attention kernel;
 gathered K/V is never materialized.
 
-Dense-family models (smollm / qwen2).  Layout: pools [L, P, T, Hkv, D] on
-the device.  Prefill writes a prompt's K/V into its pages, decode appends
-one token per step for the whole batch.  Unlike the JAX engine, whose pools
+Dense-family models (smollm / qwen2 / command-r / mistral-large / llava
+text prompts).  Layout: pools [L, P, T, Hkv, D] on the device.  Prefill
+writes a prompt's K/V into its pages, decode appends one token per step
+for the whole batch.  Unlike the JAX engine, whose pools
 are immutable and rebuilt on every write, this engine writes pages and
 copy-on-write copies IN PLACE into its pools, and hands each layer's
 [P, T, Hkv, D] view to the kernel with its strides: at qwen2-7b width a
@@ -53,13 +54,8 @@ class Engine:
     def __init__(self, model, params, cfg: Optional[EngineConfig] = None):
         cfg = cfg or EngineConfig()
         mcfg = model.cfg
-        if mcfg.arch_kind != "dense":
+        if mcfg.arch_kind not in ("dense", "vlm"):
             raise ValueError("paged engine supports the dense family")
-        if mcfg.parallel_block:
-            # the JAX engine runs such configs sequentially, which is not
-            # the model; the parallel block comes with the command-r slice
-            raise ValueError(f"{mcfg.name}: parallel blocks are not "
-                             "supported by the paged engine")
         self.model = model
         self.mcfg = mcfg
         self.cfg = cfg
@@ -199,8 +195,13 @@ def _scatter_pages(pool_l: torch.Tensor, vals: torch.Tensor,
     pool_l[pages, slots] = vals.to(pool_l.dtype)
 
 
-def _block_rest(p, x, attn, cfg):
-    """Output projection and MLP of a sequential block."""
+def _block_rest(p, x, y, attn, cfg):
+    """Output projection and MLP of a block whose normed input is y: a
+    parallel block (command-r) sums both branches of y onto x, where the
+    JAX engine runs such a config as a sequential one."""
+    if cfg.parallel_block:
+        return x + L.attn_out(p, attn, cfg) + L.swiglu(p, y, cfg,
+                                                        pre_normed=True)
     x = x + L.attn_out(p, attn, cfg)
     return x + L.swiglu({**p, "ln": p["ln2"]}, x, cfg)
 
@@ -225,7 +226,7 @@ def _prefill_step(params, k_pool, v_pool, tokens, table, start: int,
         attn = L.attention(q, k, v, causal=True,
                            sliding_window=cfg.sliding_window,
                            impl=cfg.attn_impl)
-        x = _block_rest(p, x, attn, cfg)
+        x = _block_rest(p, x, y, attn, cfg)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return L.unembed(params, x, cfg)[:, -1].argmax(dim=-1)
 
@@ -248,6 +249,6 @@ def _decode_step(params, k_pool, v_pool, tokens, pos, table, *, cfg,
         _scatter_pages(v_pool[li], v, pages, slots)
         attn = paged_attention(q[:, 0], k_pool[li], v_pool[li], table32,
                                lengths)
-        x = _block_rest(p, x, attn[:, None], cfg)
+        x = _block_rest(p, x, y, attn[:, None], cfg)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.unembed(params, x, cfg)[:, -1].argmax(dim=-1)

@@ -32,15 +32,18 @@ class TrainHyper:
 
 
 def make_loss_fn(model) -> Callable:
-    """(params, batch) -> (loss, {"ce", "aux"}); aux is 0 without MoE."""
+    """(params, batch) -> (ce + aux, {"ce", "aux"}): aux is the MoE
+    router's load-balancing loss summed over the layers, 0 without MoE."""
     cfg = model.cfg
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE loss and its aux "
-                                  "term come with the MoE slice")
 
     def loss_fn(params, batch):
-        loss = cross_entropy(model.forward(params, batch), batch["labels"])
-        return loss, {"ce": loss, "aux": torch.zeros_like(loss)}
+        if cfg.moe is None:
+            ce = cross_entropy(model.forward(params, batch), batch["labels"])
+            return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+        logits, aux = model.module.forward(params, batch, cfg,
+                                           return_aux=True)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux, {"ce": ce, "aux": aux}
 
     return loss_fn
 
@@ -58,7 +61,8 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper()) -> Callable:
     train step: grads are fp32, like the params, in their tree.  With
     ``accum_steps = k`` the batch splits into k microbatches
     (``x.reshape(k, B/k, ...)``), grads and loss are summed over them and
-    divided by k, and parts is empty, as in the JAX package."""
+    divided by k, and parts is empty, as in the JAX package; an MoE
+    microbatch routes with its own capacity and aux loss."""
     loss_fn = make_loss_fn(model)
     k = hyper.accum_steps
 

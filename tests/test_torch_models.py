@@ -20,7 +20,9 @@ from repro_torch.models import get_model
 from repro_torch.models import layers as TL
 from repro_torch.weights import from_numpy
 
-ARCHS = ["qwen2-7b", "smollm-360m", "zamba2-1.2b"]
+ARCHS = ["qwen2-7b", "smollm-360m", "zamba2-1.2b", "command-r-35b",
+         "llava-next-34b", "mistral-large-123b", "olmoe-1b-7b",
+         "granite-moe-3b-a800m"]
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -51,9 +53,9 @@ def test_unported_archs_raise():
     for arch in set(jconfigs.ARCHS) - set(tconfigs.ARCHS):
         with pytest.raises(KeyError, match="later slice"):
             tconfigs.get_config(arch)
-    moe = jconfigs.get_smoke_config("olmoe-1b-7b")
+    xlstm = jconfigs.get_smoke_config("xlstm-1.3b")
     with pytest.raises(KeyError, match="later slice"):
-        get_model(moe)
+        get_model(xlstm)
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["smollm-360m:full"])
@@ -178,9 +180,22 @@ def test_forward_matches_reference(arch, impl):
 
 
 def test_forward_refuses_parallel_blocks():
-    cfg = tconfigs.get_smoke_config("qwen2-7b").replace(parallel_block=True)
-    with pytest.raises(ValueError, match="parallel blocks"):
-        get_model(cfg).schema()
+    """Parallel blocks are ported: command-r's forward (one shared norm,
+    x + attn + mlp) matches the JAX package's, and so does a parallel
+    block on qwen2's shape (QKV bias, untied embeddings)."""
+    for cfg in (tconfigs.get_smoke_config("command-r-35b"),
+                tconfigs.get_smoke_config("qwen2-7b").replace(
+                    parallel_block=True)):
+        cfg = cfg.replace(compute_dtype="float32")
+        assert "ln2" not in get_model(cfg).schema()["layers"]
+        jparams, tparams = _jax_params(cfg, seed=3)
+        tokens = np.random.default_rng(4).integers(0, cfg.vocab, (2, 16))
+        ref = jax_get_model(cfg).forward(jparams,
+                                         {"tokens": jnp.asarray(tokens)})
+        ours = get_model(cfg).forward(tparams,
+                                      {"tokens": torch.from_numpy(tokens)})
+        np.testing.assert_allclose(_np(ours), _np(ref), atol=2e-3,
+                                   rtol=2e-3)
 
 
 # ----------------------------------------------------------------- hygiene

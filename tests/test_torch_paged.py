@@ -75,7 +75,7 @@ def _check_against_references(qj, qt, pj, pt, tbl, lengths, dtype):
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plan_covers_the_table_in_whole_pages(t, d, dtype):
-    for g in (1, 7, 8, 32):
+    for g in (1, 7, 8, 12, 32):
         for pp in (1, 37, 256):
             for b, hkv in ((1, 1), (8, 4), (64, 8)):
                 pl = pk.plan(b, g * hkv, hkv, d, t, pp, dtype)
@@ -157,6 +157,7 @@ def test_engine_pool_layers_pass_the_16_byte_load_check():
     (2, 4, 4, 128, 16, 32, 4),
     (1, 16, 1, 64, 64, 16, 16),   # MQA, long table
     (4, 28, 4, 128, 48, 16, 10),  # qwen2-7b heads: G = 7
+    (2, 96, 8, 128, 24, 16, 6),   # mistral-large heads: G = 12
     (2, 8, 2, 32, 256, 1, 100),   # one-token pages: spans of 64 pages
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -118,16 +118,40 @@ def test_engine_writes_pools_in_place():
 
 
 def test_engine_refuses_parallel_blocks_and_other_families():
+    """Only families outside the dense one are refused now: parallel
+    blocks are served (test_engine_serves_parallel_blocks)."""
     cfg = tconfigs.get_smoke_config("qwen2-7b")
     model = get_model(cfg)
     params = model.init(0, device="cpu")
-    par = get_model(cfg.replace(parallel_block=True))
-    with pytest.raises(ValueError, match="parallel blocks"):
-        Engine(par, params, EngineConfig(device="cpu"))
     other = get_model(cfg)
     object.__setattr__(other, "cfg", cfg.replace(arch_kind="moe"))
     with pytest.raises(ValueError, match="dense family"):
         Engine(other, params, EngineConfig(device="cpu"))
+
+
+def test_engine_serves_parallel_blocks():
+    """command-r's parallel block runs through the paged engine: prefill,
+    a mid-page fork and decode give in-vocab tokens, and the first token
+    of each request is the kernel-free forward's greedy token."""
+    cfg = tconfigs.get_smoke_config("command-r-35b").replace(
+        compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    eng = Engine(model, params, EngineConfig(page_tokens=4, num_pages=64,
+                                             device="cpu"))
+    prompts = [np.array([3, 1, 4, 1, 5, 9], np.int32),
+               np.array([3, 1, 4, 1, 5, 9, 2], np.int32)]
+    a = eng.add(prompts[0], max_new=3)
+    b = eng.add(prompts[1], max_new=3, fork_from=a)
+    while not (eng._requests[a].done and eng._requests[b].done):
+        eng.step()
+    for sid, prompt in zip((a, b), prompts):
+        out = eng.result(sid)
+        assert len(out) == 3 and all(0 <= t < cfg.vocab for t in out)
+        logits = model.forward(params, {"tokens": torch.from_numpy(
+            prompt.astype(np.int64))[None]})
+        assert out[0] == int(logits[0, -1].argmax())
+    assert eng.cache.stats["pages_copied"] == 1
 
 
 def test_kv_cache_copy_matches_reference():

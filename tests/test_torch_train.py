@@ -1,7 +1,8 @@
 """The port's training half on the CPU against the JAX package: the loss,
 AdamW, the train step (with gradient accumulation) for smoke smollm-360m,
-qwen2-7b and zamba2-1.2b, the remat policies, the flash op's gradient, and
-the SSD-scan op's gradient through its autograd Function.  Same inputs
+qwen2-7b, zamba2-1.2b and command-r-35b (parallel blocks), the remat
+policies, the flash op's gradient, and the SSD-scan op's gradient through
+its autograd Function.  Same inputs
 (numpy, from a seed) and same params and optimizer state (JAX
 `init_state`, carried across with `repro_torch.weights.from_numpy`), fp32
 compute."""
@@ -31,7 +32,7 @@ from repro_torch.train import (AdamWConfig, OptState, TrainHyper, init_state,
 from repro_torch.train import optimizer as TO
 from repro_torch.weights import from_numpy
 
-ARCHS = ["smollm-360m", "qwen2-7b", "zamba2-1.2b"]
+ARCHS = ["smollm-360m", "qwen2-7b", "zamba2-1.2b", "command-r-35b"]
 B, S = 4, 32
 ADAMW = dict(lr=1e-3, warmup_steps=5, decay_steps=100)
 
@@ -232,10 +233,23 @@ def test_init_state_on_the_asked_device():
 
 
 def test_loss_fn_refuses_moe_until_its_slice():
-    model = get_model(get_smoke_config("smollm-360m"))
-    moe = type(model)(jax_smoke_config("olmoe-1b-7b"), model.module)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        make_loss_fn(moe)
+    """The MoE loss is ported: ce + the router's aux loss summed over the
+    layers, each part equal to the JAX package's `make_loss_fn`."""
+    from repro.train.step import make_loss_fn as jax_loss_fn
+    jcfg, cfg = _fp32("olmoe-1b-7b")
+    jmodel = jax_get_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(2))
+    batch = _batch(cfg.vocab, b=2, s=16)
+    jloss, jparts = jax_loss_fn(jmodel)(jparams, batch)
+    loss, parts = make_loss_fn(get_model(cfg))(
+        from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
+        _tbatch(batch))
+    assert parts.keys() == jparts.keys() == {"ce", "aux"}
+    assert float(parts["aux"]) > 0
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
+    for name in parts:
+        np.testing.assert_allclose(float(parts[name]), float(jparts[name]),
+                                   rtol=1e-5, err_msg=name)
 
 
 # ------------------------------------------------------------------ remat
