@@ -4,6 +4,7 @@
   python3 chip_smoke.py zamba2_serve profile   # named phases only, traced
   python3 chip_smoke.py train_parity train     # the training phases
   python3 chip_smoke.py dense_parity moe_parity moe_serve   # dense + MoE
+  python3 chip_smoke.py whisper_parity whisper_serve xlstm_parity xlstm_serve
 
 Phases, one line each; a failing phase raises and nothing catches it:
 
@@ -18,7 +19,9 @@ Phases, one line each; a failing phase raises and nothing catches it:
    heads over 5, at head dim 32, at olmoe-1b-7b's prefill, at
    command-r-35b's 64 heads over 8, at llava-next-34b's 576 patches
    and 64 text tokens over 56 heads and at mistral-large-123b's 96 heads
-   over 8, at 2048 tokens and at the engine_parity prompts' lengths; paged
+   over 8, at 2048 tokens and at the engine_parity prompts' lengths, and
+   non-causal at whisper-medium's encoder shape, 1500 frames at B=1 and
+   B=8, 16 heads over 16 and over 4, and 30 frames; paged
    at bf16 and fp32, head dims 32/64/128, 1/7/8/12/32 query heads per kv
    head and 8/16/64-token pages, a batch whose table leaves every span
    but the first empty, and 33 heads per kv head and a pool view that
@@ -64,12 +67,35 @@ Phases, one line each; a failing phase raises and nothing catches it:
    8 against ``init_cache(8, 4096)``: 128 teacher-forced prompt tokens,
    then 64 greedy ones (no flash launch); the share of expert choices
    that capacity drops, in prefill and in decode.
+6c. whisper_parity: whisper-medium at full width, 2 encoder and 2 decoder
+   layers, fp32 (TF32 off), B=2, 1500 frames, 64 tokens: ``forward``
+   (flash: the encoder's non-causal self-attention, the decoder's causal)
+   equals ``decode_step`` stepped token by token against the cross K/V of
+   ``make_cross_kv`` (no kernel) within 2e-3, with equal greedy tokens;
+   ``encode`` through flash equals the einsum path's within 2e-3.
+6d. whisper_serve: whisper-medium as published (24 + 24 layers, 762.8 M
+   params), bf16: ``encode`` of 8 × 1500 frames (30 s of audio each) and
+   ``make_cross_kv``, twice (24 flash launches each); then a 4-token
+   decoder prompt teacher-forced and 60 greedy tokens through
+   ``make_serve_step`` against ``init_cache(8, 448)`` (no flash launch).
+6e. xlstm_parity: xlstm-1.3b at full width (d 2048, 4 heads, dk 256 and
+   dv 512 per head), one group (7 mLSTM, 1 sLSTM), fp32, B=2, S=256:
+   ``forward`` equals stepped ``decode_step`` within 2e-3, with equal
+   greedy tokens; ``mlstm_chunked`` equals a loop of ``mlstm_step`` at
+   the full head dims within 2e-4 / 2e-3.
+6f. xlstm_serve: xlstm-1.3b as published (48 layers, 1.13 B params),
+   bf16: ``make_prefill_step`` on 2 calls of 4 × 2048 tokens and the
+   device ops of one more; then ``make_serve_step`` at batch 8, 128
+   teacher-forced and 64 greedy tokens.  No kernel runs on this path.
 7. train_parity: fp32, TF32 off, B=2, S=256: one train step's loss, grad
    norm and every gradient through the kernels and without them, from one
    state: smollm-360m at full width, 2 layers, flash kernel against the
    einsum path; zamba2-1.2b at full width, 7 layers, and olmoe-1b-7b at
    full width, 2 layers (loss = ce + the router's aux loss), through the
-   kernels against the same step on the CPU (plain versions).
+   kernels against the same step on the CPU (plain versions);
+   whisper-medium, 2 + 2 layers over 1500 frames and 64 tokens, flash
+   against the einsum path and the card against the CPU; xlstm-1.3b, one
+   group at remat "dots", the card against the CPU.
 8. train: smollm-360m as published (32 layers, 361.8 M params), fp32
    params, bf16 compute, flash kernel; global batch 8 × 2048 tokens in 2
    microbatches, AdamW, random init from seed 0, the learnable Markov
@@ -136,6 +162,8 @@ MISTRAL_FLASH_SHAPE = dict(b=1, s=2048, h=96, hkv=8, d=128)
 PARITY_PROMPTS = (40, 45, 23)
 LLAVA_FLASH_SHAPE = dict(b=1, s=LLAVA_PATCHES + LLAVA_TEXT, h=56, hkv=8,
                          d=128)
+# whisper-medium's encoder self-attention (non-causal) over 30 s of audio
+WHISPER_FLASH_SHAPE = dict(b=8, s=1500, h=16, hkv=16, d=64)
 SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
 # the long-prompt serve traffic of zamba2-1.2b and olmoe-1b-7b: 3 prefill
 # calls of 4 × 4096 tokens, then batch-8 decode against a 4096-token cache
@@ -143,6 +171,17 @@ SERVE_PROMPT, SERVE_SUFFIX, SERVE_FORKS, SERVE_NEW = 500, 64, 7, 32
 LONG_SERVE = types.SimpleNamespace(prefill_b=4, prefill_s=4096, prefills=3,
                                    decode_b=8, cache_len=4096, prompt=128,
                                    new=64)
+# whisper-medium serving: 8 clips of 30 s (1500 frames) encoded, twice;
+# decode at batch 8 against its 448-token decoder context, a 4-token
+# prompt teacher-forced, then 60 greedy tokens.  whisper_parity decodes 64
+WHISPER_SERVE = types.SimpleNamespace(batch=8, encodes=2, context=448,
+                                      prompt=4, new=60)
+WHISPER_TOKENS = 64
+# xlstm-1.3b serving: 2 prefill calls of 4 × 2048 tokens (its training
+# context), then batch-8 decode, 128 prompt tokens teacher-forced and 64
+# greedy ones
+XLSTM_SERVE = types.SimpleNamespace(prefill_b=4, prefill_s=2048, prefills=2,
+                                    decode_b=8, prompt=128, new=64)
 # smollm-360m training: global batch 8 of 2048 tokens in 2 microbatches,
 # 20 steps, a checkpoint at 20, a restart that trains on to 24
 TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 2048, 2
@@ -154,8 +193,16 @@ TRAIN_STEPS, TRAIN_RESTART_STEPS, TRAIN_WARMUP = 20, 24, 2
 # the SSD tolerance
 # olmoe: the card's flash kernel and index_add order against the CPU, held
 # to zamba2's tolerance
+# whisper (flash against einsum, and the card against the CPU) and xlstm
+# (the card against the CPU) are held to the same tolerance
+# xlstm train_parity: a position whose normaliser margin differs in sign
+# between the card and the CPU must lie within this share of its floor
+# (the forward's card-vs-CPU rounding is ~1e-5); at most this many batches
+# are drawn to find one where no position changes side
+XLSTM_TIE, XLSTM_BATCHES = 1e-4, 3
 GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL,
-            "olmoe-1b-7b": SSD_TOL}
+            "olmoe-1b-7b": SSD_TOL, "whisper-medium": SSD_TOL,
+            "xlstm-1.3b": SSD_TOL}
 
 
 def log(phase: str, **kw) -> None:
@@ -329,18 +376,20 @@ def phase_kernels(gen: torch.Generator) -> dict:
                             device=dev, dtype=torch.float32).to(dtype)
         return fused[:, :, :h], fused[:, :, h:h + hkv], fused[:, :, h + hkv:]
 
-    def flash_case(b, s, h, hkv, d, dt, window):
+    def flash_case(b, s, h, hkv, d, dt, window, causal=True):
         q, k, v = qkv(b, s, h, hkv, d, dt)
-        out = flash_attention_fwd(q, k, v, causal=True,
+        out = flash_attention_fwd(q, k, v, causal=causal,
                                   sliding_window=window)
         torch.cuda.synchronize()
-        ref = attention_plain(q, k, v, causal=True, sliding_window=window)
+        ref = attention_plain(q, k, v, causal=causal, sliding_window=window)
         err = max_err(out, ref, dt, f"flash B={b} S={s} H={h} D={d} {dt} "
-                                    f"window={window}")
+                                    f"window={window} causal={causal}")
         if dt == torch.bfloat16:
             flash_errs.append(err)
         log("kernels", kernel="flash_attention", B=b, S=s, H=h, Hkv=hkv, D=d,
-            dtype=str(dt), window=window, max_abs_err=f"{err:.3e}")
+            dtype=str(dt), window=window, causal=causal,
+            max_abs_err=f"{err:.3e}")
+        del q, k, v, out, ref
 
     fs = FLASH_SHAPE
     for s in (500, 512, 564, 576):
@@ -371,27 +420,40 @@ def phase_kernels(gen: torch.Generator) -> dict:
     for s_len in PARITY_PROMPTS:
         for dt in (torch.bfloat16, torch.float32):
             flash_case(ms["b"], s_len, ms["h"], ms["hkv"], ms["d"], dt, None)
+    # the non-causal branch (whisper's encoder): 1500 frames, a partial last
+    # kv tile and no diagonal; at B=1 and B=8, grouped 16 over 4, and the
+    # smoke encoder's 30 frames, below one tile
+    ws = WHISPER_FLASH_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        for b in (1, ws["b"]):
+            flash_case(b, ws["s"], ws["h"], ws["hkv"], ws["d"], dt, None,
+                       causal=False)
+        flash_case(1, ws["s"], ws["h"], 4, ws["d"], dt, None, causal=False)
+        flash_case(2, 30, ws["h"], ws["hkv"], ws["d"], dt, None,
+                   causal=False)
 
-    def flash_times(b, s, h, hkv, d, what):
+    def flash_times(b, s, h, hkv, d, what, causal=True):
         """Kernel and library call in turns, plain version alone, at one
-        causal bf16 shape with contiguous inputs; bound from the shape."""
+        bf16 shape with contiguous inputs; bound from the shape."""
         q, k, v = (t.contiguous() for t in qkv(b, s, h, hkv, d,
                                                  torch.bfloat16))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fns = {"kernel": lambda: flash_attention_fwd(q, k, v, causal=True),
+        fns = {"kernel": lambda: flash_attention_fwd(q, k, v, causal=causal),
                "library": lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+                   qt, kt, vt, is_causal=causal, enable_gqa=True)}
         try:
             fns["library"]()
         except TypeError:       # a PyTorch without enable_gqa (< 2.5)
             del fns["library"]
         ms = cuda_ms_turns(fns)
-        plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 5)
+        plain = cuda_ms(lambda: attention_plain(q, k, v, causal=causal), 5)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-        flops = 4 * d * b * h * s * (s + 1) / 2
+        # QK^T and PV, 2 FLOPs per multiply-add each, over the visible keys
+        flops = 4 * d * b * h * (s * (s + 1) / 2 if causal else s * s)
         t_bound, by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
         del q, k, v, qt, kt, vt
-        return {"shape": f"B={b} S={s} H={h} Hkv={hkv} D={d} causal bf16",
+        kind = "causal" if causal else "non-causal"
+        return {"shape": f"B={b} S={s} H={h} Hkv={hkv} D={d} {kind} bf16",
                 "path": what, "ms": ms["kernel"], "kernel_ms": ms["kernel"],
                 "plain_ms": plain, "library_ms": ms.get("library"),
                 "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
@@ -415,6 +477,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
                                      "mistral-large-123b dense_parity")):
         flash_shapes.append(flash_times(sh["b"], sh["s"], sh["h"],
                                         sh["hkv"], sh["d"], what))
+    flash_shapes.append(flash_times(ws["b"], ws["s"], ws["h"], ws["hkv"],
+                                    ws["d"], "whisper-medium encode",
+                                    causal=False))
     for sh in flash_shapes:
         log("kernels", kernel="flash_attention", **{
             k: sh[k] for k in ("path", "ms", "plain_ms", "library_ms",
@@ -903,6 +968,18 @@ def profile_window(name: str, fn) -> None:
               f"{t / busy_ms:7.2%} op {e.key[:60]}")
 
 
+def device_ops(fn) -> int:
+    """The operations (kernels, copies, fills) that ``fn`` puts on the
+    card, counted from a torch.profiler trace of its CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_serve(gen: torch.Generator, profile: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1089,26 +1166,31 @@ def run_decode(serve, params, cache, prompts: torch.Tensor, new: int,
     return step_ms, cache, {"tokens": toks, "pos": pos}
 
 
+def serving_params(model, gen):
+    """fp32 init, then the serving copy in bf16; (params, setup s, setup
+    peak bytes)."""
+    from repro_torch.models.common import tree_map
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      model.init(gen, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
 def phase_zamba2_serve(gen: torch.Generator, profile: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.mamba2_scan import kernel as sk
     from repro_torch.models import get_model
-    from repro_torch.models.common import tree_map
     from repro_torch.train import make_prefill_step, make_serve_step
 
     ls = LONG_SERVE
     cfg = get_config("zamba2-1.2b").replace(attn_impl="pallas")
     model = get_model(cfg)
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    # fp32 init, then the serving copy in the compute dtype
-    params = tree_map(lambda t: t.to(torch.bfloat16),
-                      model.init(gen, device="cuda"))
-    gc.collect()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    setup_peak = torch.cuda.max_memory_allocated()
+    params, setup_s, setup_peak = serving_params(model, gen)
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     rng = np.random.RandomState(0)
     n_sites = 6
@@ -1324,21 +1406,12 @@ def phase_moe_serve(gen: torch.Generator, profile: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import get_model, layers
-    from repro_torch.models.common import tree_map
     from repro_torch.train import make_prefill_step, make_serve_step
 
     ls = LONG_SERVE
     cfg = get_config("olmoe-1b-7b").replace(attn_impl="pallas")
     model, m = get_model(cfg), cfg.moe
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    # fp32 init, then the serving copy in the compute dtype
-    params = tree_map(lambda t: t.to(torch.bfloat16),
-                      model.init(gen, device="cuda"))
-    gc.collect()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    setup_peak = torch.cuda.max_memory_allocated()
+    params, setup_s, setup_peak = serving_params(model, gen)
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     rng = np.random.RandomState(0)
 
@@ -1432,6 +1505,326 @@ def phase_moe_serve(gen: torch.Generator, profile: bool = False) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phases 5c, 6c
+def whisper_config(**kw):
+    """whisper-medium as published, or cut: ``layers`` sets both stacks'
+    depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import EncDecConfig
+    cfg = get_config("whisper-medium")
+    layers = kw.pop("layers", None)
+    if layers is not None:
+        kw.update(n_layers=layers, encdec=EncDecConfig(
+            encoder_layers=layers, encoder_seq=cfg.encdec.encoder_seq))
+    return cfg.replace(**kw)
+
+
+def whisper_frames(gen, b: int, cfg, dtype=torch.float32) -> torch.Tensor:
+    """Random frame embeddings [b, 1500, d] (the conv frontend is a stub)."""
+    return torch.randn((b, cfg.encdec.encoder_seq, cfg.d_model),
+                       generator=gen, device="cuda").to(dtype)
+
+
+def phase_whisper_parity(gen: torch.Generator) -> dict:
+    """whisper-medium at full width, 2 encoder and 2 decoder layers, fp32
+    (TF32 off), B=2, 1500 frames, 64 tokens: ``forward`` (flash, the
+    encoder's non-causal) equals ``decode_step`` stepped token by token
+    against the cross K/V of ``make_cross_kv`` (no kernel) within 2e-3,
+    the kernel's ``encode`` equals the einsum path's, and the greedy
+    tokens agree."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+    from repro_torch.models import whisper as W
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = whisper_config(layers=2, compute_dtype="float32",
+                         attn_impl="pallas")
+    model = get_model(cfg)
+    params = model.init(gen, device="cuda")
+    b, s = 2, WHISPER_TOKENS
+    frames = whisper_frames(gen, b, cfg)
+    tokens = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab, (b, s))).cuda()
+    n = cfg.n_layers
+    fk.launches = 0
+    with torch.no_grad():
+        full = model.forward(params, {"frames": frames, "tokens": tokens})
+        torch.cuda.synchronize()
+        if fk.launches != 2 * n:           # encoder and decoder self-attn
+            raise AssertionError(f"whisper forward launched flash "
+                                 f"{fk.launches}")
+        launches = {"flash_attention": fk.launches}
+        enc = W.encode(params, frames, cfg)
+        enc_ref = W.encode(params, frames, cfg.replace(attn_impl="xla"))
+        if fk.launches != 3 * n:
+            raise AssertionError(f"encode launched flash {fk.launches}")
+        enc_err = max_err(enc, enc_ref, torch.float32,
+                          "whisper encode, flash vs einsum", 2e-3)
+        cache = model.init_cache(b, s)
+        cache["cross"] = W.make_cross_kv(params, enc, cfg)
+        steps = []
+        for t in range(s):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": tokens[:, t:t + 1],
+                                "pos": torch.full((b,), t, dtype=torch.int32,
+                                                  device="cuda")})
+            steps.append(logits[:, 0])
+        stepped = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+    if fk.launches != 3 * n:
+        raise AssertionError("the stepped decode launched a kernel")
+    err = max_err(full, stepped, torch.float32,
+                  "whisper forward vs stepped decode", 2e-3)
+    same = (full.argmax(-1) == stepped.argmax(-1)).float().mean().item()
+    if same != 1.0:
+        raise AssertionError(f"whisper greedy tokens differ: {same:.4f} of "
+                             "positions agree")
+    log("whisper_parity", arch=cfg.name, encoder_layers=n, decoder_layers=n,
+        dtype="float32", batch=b, frames=cfg.encdec.encoder_seq, tokens=s,
+        max_abs_err=f"{err:.3e}",
+        max_abs_logit=f"{full.abs().max().item():.3e}",
+        encode_max_abs_err=f"{enc_err:.3e}", tokens_equal=True,
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        launches=launches)
+    del params, cache, full, stepped, enc, enc_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"whisper-medium whisper_parity": launches}
+
+
+def phase_whisper_serve(gen: torch.Generator, profile: bool = False) -> dict:
+    """whisper-medium as published (24 + 24 layers), bf16: `encode` of 8 ×
+    1500 frames (30 s of audio each) and `make_cross_kv`, twice; then a
+    4-token decoder prompt teacher-forced and 60 greedy tokens through
+    `make_serve_step` against `init_cache(8, 448)` (the decoder's
+    context) with the cross K/V in it."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+    from repro_torch.models import whisper as W
+    from repro_torch.train import make_serve_step
+
+    ws = WHISPER_SERVE
+    cfg = whisper_config(attn_impl="pallas")
+    model = get_model(cfg)
+    params, setup_s, setup_peak = serving_params(model, gen)
+    serve = make_serve_step(model)
+    frames = whisper_frames(gen, ws.batch, cfg, torch.bfloat16)
+
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches = 0
+    encode_ms = []
+    with torch.no_grad():
+        for i in range(ws.encodes):
+            t0 = time.perf_counter()
+            cross = W.make_cross_kv(params, W.encode(params, frames, cfg),
+                                    cfg)
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+            want = cfg.encdec.encoder_layers * (i + 1)
+            if fk.launches != want:
+                raise AssertionError(f"encode {i}: flash {fk.launches} "
+                                     f"launches, want {want}")
+    encode_peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": fk.launches}
+    for name in ("k", "v"):
+        if not torch.isfinite(cross[name]).all():
+            raise AssertionError(f"non-finite cross {name}")
+
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(ws.batch, ws.context)
+    cache["cross"] = cross
+    del cross
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (ws.batch, ws.prompt))).cuda()
+    with torch.no_grad():
+        step_ms, cache, last = run_decode(serve, params, cache, prompts,
+                                          ws.new, cfg.vocab)
+    decode_peak = torch.cuda.max_memory_allocated()
+    if fk.launches != launches["flash_attention"]:
+        raise AssertionError("decode launched the flash kernel")
+    for name in ("k", "v"):
+        if not torch.isfinite(cache["self"][name]).all():
+            raise AssertionError(f"non-finite self-attention {name} cache")
+    if cache["self"]["key_pos"].max().item() != ws.prompt + ws.new - 2:
+        raise AssertionError("ring cache key positions")
+    cross_gb = sum(t.numel() * t.element_size()
+                   for t in cache["cross"].values()) / 1e9
+    decode_s = sum(step_ms) / 1e3
+    log("whisper_serve", arch=cfg.name,
+        layers=f"{cfg.encdec.encoder_layers}+{cfg.n_layers}",
+        d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.compute_dtype,
+        params=model.param_count(), batch=ws.batch,
+        frames=cfg.encdec.encoder_seq,
+        encode_ms=[round(x, 3) for x in encode_ms],
+        audio_s_per_s=f"{ws.batch * 30 / (encode_ms[-1] / 1e3):.1f}",
+        decode_steps=len(step_ms), context=ws.context,
+        decode_ms_per_step=f"{np.mean(step_ms):.3f}",
+        decode_ms_median=f"{np.median(step_ms):.3f}",
+        decode_tokens_per_s=f"{ws.batch * len(step_ms) / decode_s:.1f}",
+        cross_cache_gb=f"{cross_gb:.3f}",
+        setup_s=f"{setup_s:.3f}", setup_peak_gb=f"{setup_peak / 1e9:.3f}",
+        encode_peak_gb=f"{encode_peak / 1e9:.3f}",
+        decode_peak_gb=f"{decode_peak / 1e9:.3f}", launches=launches)
+    if profile:
+        # outside the counted run: one encode, then 8 decode steps
+        with torch.no_grad():
+            profile_window("whisper encode x1", lambda: W.make_cross_kv(
+                params, W.encode(params, frames, cfg), cfg))
+            profile_window("whisper decode x8", lambda: [
+                serve(params, cache, last) for _ in range(8)])
+    del params, cache, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_xlstm_parity(gen: torch.Generator) -> None:
+    """xlstm-1.3b at full width (d 2048, 4 heads, dk 256 and dv 512 per
+    head), one group (7 mLSTM layers and 1 sLSTM), fp32 (TF32 off), B=2,
+    S=256: ``forward`` (chunked mLSTM) equals ``decode_step`` stepped token
+    by token within 2e-3, with equal greedy tokens; and `mlstm_chunked`
+    equals a loop of `mlstm_step` at the full head dims within the JAX
+    package's 2e-4 / 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import xlstm as X
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config("xlstm-1.3b")
+    cfg = base.replace(n_layers=base.xlstm.slstm_every,
+                       compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(gen, device="cuda")
+    b, s = 2, 256
+    tokens = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab, (b, s))).cuda()
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": tokens})
+        cache = model.init_cache(b, s)
+        steps = []
+        for t in range(s):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": tokens[:, t:t + 1],
+                                "pos": torch.full((b,), t, dtype=torch.int32,
+                                                  device="cuda")})
+            steps.append(logits[:, 0])
+        stepped = torch.stack(steps, dim=1)
+
+        _, _, _, h, dkh, dvh = X._dims(cfg)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        q, k, v = rnd(b, s, h, dkh), rnd(b, s, h, dkh), rnd(b, s, h, dvh)
+        ig, fg = rnd(b, s, h), rnd(b, s, h) + 2.0
+        chunked, _ = X.mlstm_chunked(q, k, v, ig, fg, cfg.xlstm.chunk)
+        st = (q.new_zeros((b, h, dvh, dkh)), q.new_zeros((b, h, dkh)),
+              q.new_full((b, h), -float("inf")))
+        outs = []
+        for t in range(s):
+            o, st = X.mlstm_step(st, q[:, t], k[:, t], v[:, t], ig[:, t],
+                                 fg[:, t])
+            outs.append(o)
+        recurrent = torch.stack(outs, dim=1)
+        torch.cuda.synchronize()
+    err = max_err(full, stepped, torch.float32,
+                  "xlstm forward vs stepped decode", 2e-3)
+    same = (full.argmax(-1) == stepped.argmax(-1)).float().mean().item()
+    if same != 1.0:
+        raise AssertionError(f"xlstm greedy tokens differ: {same:.4f} of "
+                             "positions agree")
+    if not torch.isfinite(chunked).all() or not torch.allclose(
+            chunked, recurrent, atol=2e-4, rtol=2e-3):
+        raise AssertionError(
+            "mlstm_chunked vs mlstm_step: max |err| "
+            f"{(chunked - recurrent).abs().max().item():.3e}")
+    log("xlstm_parity", arch=cfg.name, layers=cfg.n_layers,
+        dtype="float32", batch=b, seq=s, chunk=cfg.xlstm.chunk,
+        max_abs_err=f"{err:.3e}",
+        max_abs_logit=f"{full.abs().max().item():.3e}", tokens_equal=True,
+        chunked_vs_step_max_abs_err=
+        f"{(chunked - recurrent).abs().max().item():.3e}",
+        head_dims=f"dk {dkh} dv {dvh}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del params, cache, full, stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_xlstm_serve(gen: torch.Generator, profile: bool = False) -> None:
+    """xlstm-1.3b as published (48 layers), bf16: 2 prefills of 4 × 2048
+    tokens (its training context) through `make_prefill_step`, the device
+    ops of one more; then batch-8 decode through `make_serve_step`, 128
+    teacher-forced and 64 greedy tokens.  No kernel on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    xs = XLSTM_SERVE
+    cfg = get_config("xlstm-1.3b")
+    model = get_model(cfg)
+    params, setup_s, setup_peak = serving_params(model, gen)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    rng = np.random.RandomState(0)
+
+    def batch(b, s):
+        return torch.from_numpy(rng.randint(0, cfg.vocab, (b, s))).cuda()
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        prefill_ms = run_prefills(prefill, params, batch, xs.prefills,
+                                  xs.prefill_b, xs.prefill_s, cfg.vocab,
+                                  lambda i: None)
+        tokens = batch(xs.prefill_b, xs.prefill_s)
+        ops = device_ops(lambda: prefill(params, {"tokens": tokens}))
+    prefill_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = batch(xs.decode_b, xs.prompt)
+    with torch.no_grad():
+        step_ms, cache, last = run_decode(
+            serve, params, model.init_cache(xs.decode_b, xs.prefill_s),
+            prompts, xs.new, cfg.vocab)
+    decode_peak = torch.cuda.max_memory_allocated()
+    for name, t in cache.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {name} state")
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in cache.values()) / 1e9
+    decode_s = sum(step_ms) / 1e3
+    prefill_tps = xs.prefill_b * xs.prefill_s * (xs.prefills - 1) \
+        / (sum(prefill_ms[1:]) / 1e3)
+    log("xlstm_serve", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.compute_dtype,
+        params=model.param_count(), prefill_batch=xs.prefill_b,
+        prefill_seq=xs.prefill_s,
+        prefill_ms=[round(x, 3) for x in prefill_ms],
+        prefill_tokens_per_s=f"{prefill_tps:.1f}",
+        device_ops_per_prefill=ops,
+        decode_batch=xs.decode_b, decode_steps=len(step_ms),
+        decode_ms_per_step=f"{np.mean(step_ms):.3f}",
+        decode_ms_median=f"{np.median(step_ms):.3f}",
+        decode_tokens_per_s=f"{xs.decode_b * len(step_ms) / decode_s:.1f}",
+        state_gb=f"{state_gb:.3f}",
+        setup_s=f"{setup_s:.3f}", setup_peak_gb=f"{setup_peak / 1e9:.3f}",
+        prefill_peak_gb=f"{prefill_peak / 1e9:.3f}",
+        decode_peak_gb=f"{decode_peak / 1e9:.3f}")
+    if profile:
+        # outside the counted run: one prefill, then 8 decode steps
+        with torch.no_grad():
+            profile_window("xlstm prefill x1",
+                           lambda: prefill(params, {"tokens": tokens}))
+            profile_window("xlstm decode x8", lambda: [
+                serve(params, cache, last) for _ in range(8)])
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 7
 def phase_train_parity(gen: torch.Generator) -> dict:
     """One train step's loss, grad norm and gradients with and without the
@@ -1454,13 +1847,14 @@ def phase_train_parity(gen: torch.Generator) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     b, s = 2, 256
 
-    def grads(cfg, params, tokens):
+    def grads(cfg, params, tokens, **extra):
         loss, parts, g = make_grad_fn(get_model(cfg))(
-            params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+            params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+                     **extra})
         return (float(loss), float(parts["aux"]), float(global_norm(g)),
                 {k: v.cpu() for k, v in flatten_tree(g).items()})
 
-    def compare(arch, kern, plain, launches):
+    def compare(arch, kern, plain, launches, against="plain"):
         (lk, ak, nk, gk), (lp, ap, np_, gp) = kern, plain
         tol = GRAD_TOL[arch]
         aux_err = abs(ak - ap) / abs(ap) if ap else abs(ak - ap)
@@ -1478,7 +1872,7 @@ def phase_train_parity(gen: torch.Generator) -> dict:
                 f"aux {ak} vs {ap}, "
                 f"grad norm {nk} vs {np_}, worst gradient {worst} "
                 f"{errs[worst]:.3e} of its largest entry (tol {tol})")
-        log("train_parity", arch=arch, loss=f"{lk:.6f}",
+        log("train_parity", arch=arch, against=against, loss=f"{lk:.6f}",
             loss_plain=f"{lp:.6f}", aux=f"{ak:.6e}", aux_plain=f"{ap:.6e}",
             grad_norm=f"{nk:.6f}",
             grad_norm_plain=f"{np_:.6f}", loss_rel_err=f"{loss_err:.3e}",
@@ -1548,6 +1942,85 @@ def phase_train_parity(gen: torch.Generator) -> dict:
         dropped_share=f"{drop / total:.6f}")
     compare("olmoe-1b-7b", kern, plain, o_launches)
     del params, kern, plain, routes
+
+    # whisper, 2 + 2 layers over 1500 frames and 64 tokens: the encoder's
+    # non-causal and the decoder's causal flash (remat "none": once each)
+    # against the einsum path on the card, then the card against the CPU
+    cfg = whisper_config(layers=2, compute_dtype="float32",
+                         attn_impl="pallas")
+    params = get_model(cfg).init(gen, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab,
+                                          (b, WHISPER_TOKENS + 1))).cuda()
+    frames = whisper_frames(gen, b, cfg)
+    fk.launches = 0
+    kern = grads(cfg, params, tokens, frames=frames)
+    w_launches = {"flash_attention": fk.launches}
+    if fk.launches != 2 * cfg.n_layers:
+        raise AssertionError(f"whisper step launched {w_launches}")
+    launches["whisper-medium train_parity"] = w_launches
+    plain = grads(cfg.replace(attn_impl="xla"), params, tokens,
+                  frames=frames)
+    compare("whisper-medium", kern, plain, w_launches, "einsum")
+    t0 = time.perf_counter()
+    plain = grads(cfg, tree_map(lambda t: t.cpu(), params), tokens.cpu(),
+                  frames=frames.cpu())
+    log("train_parity", arch="whisper-medium", against="cpu",
+        cpu_step_s=f"{time.perf_counter() - t0:.3f}")
+    compare("whisper-medium", kern, plain, w_launches, "cpu")
+    del params, kern, plain
+
+    # xlstm, one group (7 mLSTM, 1 sLSTM) at its published remat "dots":
+    # no kernel; the card's chunked mLSTM and sLSTM loop against the CPU's.
+    # The mLSTM output divides by max(|den|, exp(-m)), and about half the
+    # positions sit on that floor at this init: a position within
+    # rounding of it can take the other side on the CPU, and the gradient
+    # jumps there (a batch did: one position of 14336 at a margin of
+    # 2.5e-5, grad norm 181.8 vs 234.5).  So both sides record every
+    # margin (`xlstm.DEN_LOG`): a side that differs must be a tie within
+    # XLSTM_TIE, and the gradients are compared on a batch where no
+    # position changes side, up to XLSTM_BATCHES batches
+    from repro_torch.models import xlstm as X
+    base = get_config("xlstm-1.3b")
+    cfg = base.replace(n_layers=base.xlstm.slstm_every,
+                       compute_dtype="float32")
+    params = get_model(cfg).init(gen, device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+
+    def logged_grads(p, toks):
+        X.DEN_LOG = []
+        try:
+            out = grads(cfg, p, toks)
+            return out, torch.cat([m.flatten().cpu() for m in X.DEN_LOG])
+        finally:
+            X.DEN_LOG = None
+
+    for attempt in range(XLSTM_BATCHES):
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab,
+                                              (b, s + 1))).cuda()
+        kern, m_card = logged_grads(params, tokens)
+        t0 = time.perf_counter()
+        plain, m_cpu = logged_grads(cpu_params, tokens.cpu())
+        flips = (m_card > 0) != (m_cpu > 0)
+        tie = max(m_card[flips].abs().max().item(),
+                  m_cpu[flips].abs().max().item()) if flips.any() else 0.0
+        log("train_parity", arch="xlstm-1.3b", remat=cfg.remat,
+            batch_drawn=attempt + 1,
+            cpu_step_s=f"{time.perf_counter() - t0:.3f}",
+            positions=m_card.numel(),
+            on_floor=int((m_card <= 0).sum()),
+            min_margin=f"{m_card.abs().min().item():.3e}",
+            sides_differ=int(flips.sum()), widest_differing=f"{tie:.3e}")
+        if tie > XLSTM_TIE:
+            raise AssertionError(f"xlstm: the card and the CPU put a "
+                                 f"position on other sides of the floor "
+                                 f"at a margin of {tie:.3e}")
+        if not flips.any():
+            compare("xlstm-1.3b", kern, plain, {}, "cpu")
+            break
+    else:
+        raise AssertionError(f"xlstm: a position changed side in each of "
+                             f"{XLSTM_BATCHES} batches")
+    del params, cpu_params, kern, plain
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1727,12 +2200,15 @@ def main() -> int:
         return 1
     # with no arguments every phase runs and the result lines are printed;
     # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
-    # zamba2_serve, moe_parity, moe_serve, train_parity, train, profile)
+    # zamba2_serve, moe_parity, moe_serve, whisper_parity, whisper_serve,
+    # xlstm_parity, xlstm_serve, train_parity, train, profile)
     # runs just those, to debug or to trace a serve or train phase; profile
     # alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
                               "zamba2_parity", "zamba2_serve", "moe_parity",
-                              "moe_serve", "train_parity", "train"]
+                              "moe_serve", "whisper_parity", "whisper_serve",
+                              "xlstm_parity", "xlstm_serve", "train_parity",
+                              "train"]
     profile = "profile" in phases
     t_start = time.perf_counter()
 
@@ -1752,8 +2228,9 @@ def main() -> int:
         kernels = timed("kernels", phase_kernels, gen(2))
     if "parity" in phases:
         timed("parity", phase_parity, gen(1))
-    if "serve" in phases or (profile and not {"zamba2_serve", "moe_serve",
-                                              "train"} & set(phases)):
+    if "serve" in phases or (profile and not {
+            "zamba2_serve", "moe_serve", "whisper_serve", "xlstm_serve",
+            "train"} & set(phases)):
         launches["qwen2-7b serve"] = timed("serve", phase_serve, gen(0),
                                            profile)
     if "dense_parity" in phases:
@@ -1768,6 +2245,16 @@ def main() -> int:
     if "moe_serve" in phases:
         launches["olmoe-1b-7b serve"] = timed("moe_serve", phase_moe_serve,
                                               gen(0), profile)
+    if "whisper_parity" in phases:
+        launches.update(timed("whisper_parity", phase_whisper_parity,
+                              gen(8)))
+    if "whisper_serve" in phases:
+        launches["whisper-medium serve"] = timed(
+            "whisper_serve", phase_whisper_serve, gen(0), profile)
+    if "xlstm_parity" in phases:
+        timed("xlstm_parity", phase_xlstm_parity, gen(9))
+    if "xlstm_serve" in phases:
+        timed("xlstm_serve", phase_xlstm_serve, gen(0), profile)
     if "train_parity" in phases:
         launches.update(timed("train_parity", phase_train_parity, gen(5)))
     if "train" in phases:

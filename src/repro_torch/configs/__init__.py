@@ -1,8 +1,8 @@
 """Config registry of the port: ``--arch <id>`` → ModelConfig.
 
-The port knows the archs whose model family it has ported.  Each module
-exports CONFIG (the published configuration) and smoke() (a reduced
-same-family config for CPU tests), as in the JAX package.
+Every arch of the JAX package, in its order.  Each module exports CONFIG
+(the published configuration) and smoke() (a reduced same-family config
+for CPU tests), as in the JAX package.
 """
 from typing import List
 
@@ -10,7 +10,7 @@ from .base import SHAPES, ModelConfig, ShapeConfig
 
 from . import (command_r_35b, granite_moe_3b_a800m, llava_next_34b,
                mistral_large_123b, olmoe_1b_7b, qwen2_7b, smollm_360m,
-               zamba2_1p2b)
+               whisper_medium, xlstm_1p3b, zamba2_1p2b)
 
 _MODULES = {
     "mistral-large-123b": mistral_large_123b,
@@ -19,6 +19,8 @@ _MODULES = {
     "smollm-360m": smollm_360m,
     "llava-next-34b": llava_next_34b,
     "zamba2-1.2b": zamba2_1p2b,
+    "xlstm-1.3b": xlstm_1p3b,
+    "whisper-medium": whisper_medium,
     "olmoe-1b-7b": olmoe_1b_7b,
     "granite-moe-3b-a800m": granite_moe_3b_a800m,
 }
@@ -28,8 +30,7 @@ ARCHS: List[str] = list(_MODULES)
 
 def _module(name: str):
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported yet: it comes in a "
-                       f"later slice of the port; ported: {ARCHS}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     return _MODULES[name]
 
 

@@ -46,8 +46,8 @@ class P:
     """Declarative parameter spec (shape, logical axes, init)."""
     shape: Tuple[int, ...]
     axes: Axes                      # logical axis names, len == len(shape)
-    init: str = "normal"            # normal | zeros | ones | neg_ones |
-                                    # scaled
+    init: str = "normal"            # normal | scaled | zeros | ones |
+                                    # neg_ones | neg_large | eps
     scale: float = 1.0
     dtype: Optional[str] = None     # override the config param_dtype
 
@@ -78,6 +78,16 @@ def layer_views(layers: Dict[str, torch.Tensor]
     parts = {k: v.unbind(0) for k, v in layers.items()}
     n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def group_views(groups: Dict[str, torch.Tensor]
+                ) -> List[List[Dict[str, torch.Tensor]]]:
+    """`layer_views` of a tree stacked twice, [G, K, ...] (xLSTM's mLSTM
+    layers, K per group): G lists of K layers' views."""
+    parts = {k: v.unbind(0) for k, v in groups.items()}
+    n = len(next(iter(parts.values())))
+    return [layer_views({k: v[g] for k, v in parts.items()})
+            for g in range(n)]
 
 
 # matmul outputs, which remat "dots" keeps (JAX's `checkpoint_dots`)
@@ -129,20 +139,27 @@ def decode_window(cfg, max_len: int) -> int:
     return max_len
 
 
+# the constant init modes: ring-cache key positions start at -1 (empty);
+# xLSTM's stabilisers at -1e30 and its sLSTM normaliser at 1e-6
+_FILL = {"zeros": 0, "ones": 1, "neg_ones": -1, "neg_large": -1e30,
+         "eps": 1e-6}
+
+
 def init_params(schema: Any, generator: Optional[torch.Generator],
                 param_dtype: str, device: torch.device) -> Any:
     """Materialize a schema on ``device``, drawing from ``generator`` (which
     must live on that device; None for a schema with no random init).
     The JAX package's init rules; the numbers differ from JAX's, so parity
-    tests carry JAX params across instead."""
+    tests carry JAX params across instead.  An init mode it does not know
+    raises ``ValueError``."""
     def mk(p: P) -> torch.Tensor:
         dt = to_dtype(p.dtype or param_dtype)
-        if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dt, device=device)
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dt, device=device)
-        if p.init == "neg_ones":   # ring-cache key positions: -1 = empty
-            return torch.full(p.shape, -1, dtype=dt, device=device)
+        if p.init in _FILL:
+            return torch.full(p.shape, _FILL[p.init], dtype=dt,
+                              device=device)
+        if p.init not in ("normal", "scaled"):
+            raise ValueError(f"unknown init mode {p.init!r} of a {p.shape} "
+                             "parameter")
         x = torch.randn(p.shape, generator=generator, dtype=dt,
                         device=device)
         if p.init == "scaled":     # fan-in scaled normal

@@ -31,6 +31,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Normalised in fp32 with the population variance, cast to x's dtype,
+    then scaled and shifted in that dtype, as the JAX package does."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * scale.to(dt) \
+        + bias.to(dt)
+
+
 # ----------------------------------------------------------------- rotary
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2,
@@ -204,6 +216,16 @@ def swiglu(params, x: torch.Tensor, cfg,
     h = F.silu(y @ cast(params["w_gate"], dt)) * (y @ cast(params["w_up"],
                                                           dt))
     return h @ cast(params["w_down"], dt)
+
+
+def gelu_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """LayerNorm, up-projection with bias, GELU in its tanh form (the
+    default of `jax.nn.gelu`), down-projection with bias."""
+    dt = to_dtype(cfg.compute_dtype)
+    y = layer_norm(x, params["ln"], params["ln_b"], cfg.norm_eps)
+    h = F.gelu(y @ cast(params["w_up"], dt) + cast(params["b_up"], dt),
+               approximate="tanh")
+    return h @ cast(params["w_down"], dt) + cast(params["b_down"], dt)
 
 
 # -------------------------------------------------------------------- MoE

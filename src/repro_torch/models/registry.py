@@ -7,7 +7,7 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from . import dense, mamba2, moe
+from . import dense, mamba2, moe, whisper, xlstm
 from .common import P, init_params, resolve_device
 
 _MODULES = {
@@ -15,6 +15,8 @@ _MODULES = {
     "vlm": dense,                   # LLaVA backbone = dense + patch proj
     "moe": moe,
     "mamba2_hybrid": mamba2,
+    "xlstm": xlstm,
+    "whisper": whisper,
 }
 
 
@@ -65,13 +67,15 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int,
                    device: Union[str, torch.device] = "cuda") -> Any:
-        """An empty decode cache on ``device`` (zeros; key_pos -1)."""
+        """An empty decode cache on ``device``, as its schema's init modes
+        say (zeros; key_pos -1; xLSTM's stabiliser -1e30, its sLSTM
+        normaliser 1e-6)."""
         return init_params(self.cache_schema(batch, max_len), None,
                            self.cfg.compute_dtype, resolve_device(device))
 
 
 def get_model(cfg) -> Model:
     if cfg.arch_kind not in _MODULES:
-        raise KeyError(f"arch_kind {cfg.arch_kind!r} is not ported yet: it "
-                       f"comes in a later slice; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch_kind {cfg.arch_kind!r}; known: "
+                       f"{sorted(_MODULES)}")
     return Model(cfg, _MODULES[cfg.arch_kind])

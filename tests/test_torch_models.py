@@ -22,7 +22,10 @@ from repro_torch.weights import from_numpy
 
 ARCHS = ["qwen2-7b", "smollm-360m", "zamba2-1.2b", "command-r-35b",
          "llava-next-34b", "mistral-large-123b", "olmoe-1b-7b",
-         "granite-moe-3b-a800m"]
+         "granite-moe-3b-a800m", "xlstm-1.3b", "whisper-medium"]
+# the archs whose forward takes tokens alone (whisper's takes frames too:
+# tests/test_torch_whisper.py)
+TOKEN_ARCHS = [a for a in ARCHS if a != "whisper-medium"]
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -50,12 +53,16 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_raise():
-    for arch in set(jconfigs.ARCHS) - set(tconfigs.ARCHS):
-        with pytest.raises(KeyError, match="later slice"):
-            tconfigs.get_config(arch)
-    xlstm = jconfigs.get_smoke_config("xlstm-1.3b")
-    with pytest.raises(KeyError, match="later slice"):
-        get_model(xlstm)
+    """Every arch of the JAX package is ported, and this test covers them
+    all; an unknown arch or arch_kind still raises KeyError."""
+    assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS) == set(ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("gpt-5")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_smoke_config("gpt-5")
+    with pytest.raises(KeyError, match="unknown arch_kind"):
+        get_model(tconfigs.get_smoke_config("xlstm-1.3b").replace(
+            arch_kind="rwkv"))
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["smollm-360m:full"])
@@ -165,7 +172,7 @@ def test_swiglu_embed_unembed():
 
 
 # ----------------------------------------------------------------- forward
-@pytest.mark.parametrize("arch", ARCHS)    # qkv bias / tied embeddings
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)   # qkv bias / tied embeddings
 @pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_interpret"])
 def test_forward_matches_reference(arch, impl):
     cfg = tconfigs.get_smoke_config(arch).replace(compute_dtype="float32")
