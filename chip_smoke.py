@@ -104,6 +104,20 @@ Phases, one line each; a failing phase raises and nothing catches it:
    port's ``Trainer`` with a checkpoint at 20, then a fresh trainer
    restores step 20 (state bit for bit, data cursor) and trains to 24.
    Flash launches must be 32 × 2 × 24; the loss must fall.
+9. pod_sync: two processes share the card over gloo, one pod each of a
+   ("pod",) mesh of 2; each trains smollm-360m as the train phase does
+   (batch 8 × 2048 in 2 microbatches, its own WTF cluster, host ``rank``
+   of a pipeline of global batch 16) for 4 steps, with the int8
+   ``make_pod_sync`` every 2.  After each sync both ranks' params must be
+   bit-identical and every leaf within one int8 step of the fp32 mean of
+   the pre-sync params; each process must launch flash 32 × 2 × 4 times.
+   The sync's ms, the int8 bytes per sync, the peak memory per process
+   and whether gloo's all-gather takes CUDA tensors are printed.
+10. dryrun: ``repro_torch.launch.dryrun`` in a subprocess (no card, a
+   fake process group) for smollm-360m × train_4k on the (16, 16) mesh,
+   and for one device at the train phase's shape; the H100 roofline
+   terms of each, and the train phase's measured step beside the
+   one-device bound.
 
 Run it from the root of a checkout: it imports ``src/`` of the working
 directory.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -200,6 +214,12 @@ TRAIN_STEPS, TRAIN_RESTART_STEPS, TRAIN_WARMUP = 20, 24, 2
 # (the forward's card-vs-CPU rounding is ~1e-5); at most this many batches
 # are drawn to find one where no position changes side
 XLSTM_TIE, XLSTM_BATCHES = 1e-4, 3
+# pod_sync: two processes (one pod each) share the card over gloo, each
+# training smollm-360m as the train phase does on its half of a global
+# batch of 16; the int8 parameter average runs every POD_SYNC_EVERY steps
+POD_RANKS, POD_STEPS, POD_SYNC_EVERY = 2, 4, 2
+# the train phase's measured median step, for the dryrun phase
+TRAIN_RESULT: dict = {}
 GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL,
             "olmoe-1b-7b": SSD_TOL, "whisper-medium": SSD_TOL,
             "xlstm-1.3b": SSD_TOL}
@@ -2145,6 +2165,7 @@ def phase_train(profile: bool = False) -> dict:
         # wall time of each step (the trainer reads its metrics every step)
         step_ms = [1e3 / h["steps_per_s"] for h in out1["history"]]
         ms = float(np.median(step_ms[TRAIN_WARMUP:]))
+        TRAIN_RESULT["ms_per_step"] = ms
         tokens = TRAIN_B * TRAIN_S
         n_params = model.param_count()
         # model FLOPs: 6·N per token for the matmuls, forward and backward,
@@ -2193,22 +2214,293 @@ def phase_train(profile: bool = False) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phases 9, 10
+def gloo_takes_cuda(group) -> str:
+    """Whether gloo's all-gather takes CUDA tensors here (the sync sends
+    its int8 through the host on gloo either way)."""
+    import torch.distributed as dist
+    x = torch.zeros(4, dtype=torch.int8, device="cuda")
+    out = torch.empty(4 * dist.get_world_size(group), dtype=torch.int8,
+                      device="cuda")
+    try:
+        dist.all_gather_into_tensor(out, x, group=group)
+        return "yes"
+    except (RuntimeError, ValueError) as e:
+        return f"no ({type(e).__name__}: {str(e).splitlines()[0][:80]})"
+
+
+def pod_sync_worker(rank: int, store: str, out_path: str) -> None:
+    """One pod of the pod_sync phase (a process of its own): trains
+    smollm-360m as published on its own WTF cluster, host ``rank`` of the
+    pipeline, with `make_pod_sync` every POD_SYNC_EVERY steps; around each
+    sync it snapshots the params, for observation only, and checks that
+    both ranks hold the same bits and that every leaf lies within one
+    quantization step of the fp32 mean of the ranks' pre-sync params."""
+    import hashlib
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.serialize import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import Cluster
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.data.records import write_token_shard
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainHyper
+    from repro_torch.train.compression import make_pod_sync
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=POD_RANKS)
+    mesh = init_device_mesh("cuda", (POD_RANKS,), mesh_dim_names=("pod",))
+    group = mesh.get_group("pod")
+    takes_cuda = gloo_takes_cuda(group)
+    sync = make_pod_sync(mesh)
+    cfg = get_config("smollm-360m").replace(attn_impl="pallas",
+                                            max_seq=TRAIN_S)
+    model = get_model(cfg)
+    syncs = []
+
+    def observed_sync(params):
+        pre = {k: v.detach().clone()
+               for k, v in flatten_tree(params).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sync(params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # observation: the ranks' bits, and the fp32 mean of the pre-sync
+        # params against one quantization step of the larger scale
+        post = {k: v.detach().cpu() for k, v in flatten_tree(out).items()}
+        digest = hashlib.sha256()
+        for k in sorted(post):
+            digest.update(post[k].numpy().tobytes())
+        digests = [None] * POD_RANKS
+        dist.all_gather_object(digests, digest.hexdigest(), group=group)
+        scales = [None] * POD_RANKS
+        dist.all_gather_object(scales, {k: float(v.abs().max()) / 127
+                                        for k, v in pre.items()},
+                               group=group)
+        worst = 0.0
+        for k, v in pre.items():
+            mean = v.float().cpu()
+            dist.all_reduce(mean, group=group)
+            mean /= POD_RANKS
+            step = max(sc[k] for sc in scales)
+            err = float((post[k].float() - mean).abs().max())
+            worst = max(worst, err / max(step, 1e-30))
+        syncs.append({"ms": ms, "same_bits": len(set(digests)) == 1,
+                      "worst_err_over_step": worst})
+        del pre
+        return out
+
+    data_dir = tempfile.mkdtemp(prefix=f"wtf_pod{rank}_")
+    cluster = Cluster(n_servers=4, data_dir=data_dir, replication=2,
+                      region_size=4 << 20)
+    try:
+        fs = cluster.client()
+        fs.mkdir("/corpus")
+        write_token_shard(fs, "/corpus/shard0", iter(markov_stream(
+            POD_RANKS * TRAIN_B * (TRAIN_S + 1) * 8, cfg.vocab)),
+            TRAIN_S + 1)
+        pipe = DataPipeline(fs, PipelineConfig(
+            src_paths=("/corpus/shard0",), work_dir="/epochs",
+            block_tokens=TRAIN_S + 1, global_batch=POD_RANKS * TRAIN_B,
+            seed=0)).with_hosts(rank, POD_RANKS)
+        trainer = Trainer(
+            model, pipe, CheckpointManager(fs, "/ckpt", keep=1),
+            hyper=TrainHyper(adamw=AdamWConfig(lr=1e-3, warmup_steps=5,
+                                               decay_steps=POD_STEPS),
+                             accum_steps=TRAIN_ACCUM),
+            cfg=TrainerConfig(total_steps=POD_STEPS, ckpt_every=10 ** 9,
+                              log_every=1, pod_sync_every=POD_SYNC_EVERY),
+            pod_sync=observed_sync, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches = 0
+        out = trainer.run()
+        launches = fk.launches
+        leaves = flatten_tree(model.abstract_params()).values()
+        result = {
+            "rank": rank, "launches": {"flash_attention": launches},
+            "step_ms": [1e3 / h["steps_per_s"] for h in out["history"]],
+            "losses": [h["loss"] for h in out["history"]],
+            "syncs": syncs, "int8_bytes": sum(t.numel() for t in leaves),
+            "scale_bytes": 4 * len(leaves),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "gloo_takes_cuda": takes_cuda}
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+        trainer.async_ckpt.wait()
+    finally:
+        cluster.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+def phase_pod_sync() -> dict:
+    """Two processes, one pod each, on the one card over gloo (NCCL takes
+    one rank per device): each trains smollm-360m as published for
+    POD_STEPS steps with the int8 pod sync every POD_SYNC_EVERY steps
+    (`pod_sync_worker`).  Each sync must leave both ranks bit-identical and
+    every leaf within one int8 step of the fp32 mean; each process must
+    launch flash on every layer of every microbatch."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="pod_sync_")
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(POD_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "_pod_sync_rank",
+         str(r), os.path.join(work, "store"), outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(POD_RANKS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"pod_sync rank exited {p.returncode}:\n"
+                                 + text[-3000:])
+    res = [json.load(open(o)) for o in outs]
+    shutil.rmtree(work, ignore_errors=True)
+    from repro_torch.configs import get_config
+    want = get_config("smollm-360m").n_layers * TRAIN_ACCUM * POD_STEPS
+    for r in res:
+        if r["launches"]["flash_attention"] != want:
+            raise AssertionError(f"rank {r['rank']} flash launches "
+                                 f"{r['launches']}, want {want}")
+        if len(r["syncs"]) != POD_STEPS // POD_SYNC_EVERY:
+            raise AssertionError(f"rank {r['rank']} synced "
+                                 f"{len(r['syncs'])} times")
+        for sy in r["syncs"]:
+            if not sy["same_bits"]:
+                raise AssertionError("ranks differ after a sync")
+            if not sy["worst_err_over_step"] <= 1.0:
+                raise AssertionError(f"a leaf is {sy['worst_err_over_step']}"
+                                     " int8 steps from the fp32 mean")
+    r0 = res[0]
+    log("pod_sync", arch="smollm-360m", ranks=POD_RANKS, steps=POD_STEPS,
+        sync_every=POD_SYNC_EVERY, backend="gloo",
+        gloo_all_gather_takes_cuda=r0["gloo_takes_cuda"],
+        transport="int8 and scales through the host (explicit)")
+    for r in res:
+        log("pod_sync", rank=r["rank"],
+            sync_ms=[round(sy["ms"], 3) for sy in r["syncs"]],
+            same_bits=[sy["same_bits"] for sy in r["syncs"]],
+            worst_err_in_int8_steps=[round(sy["worst_err_over_step"], 4)
+                                     for sy in r["syncs"]],
+            flash_launches=r["launches"]["flash_attention"],
+            peak_gb=f"{r['peak_gb']:.3f}",
+            losses=[round(x, 5) for x in r["losses"]])
+    log("pod_sync", int8_bytes_per_sync=r0["int8_bytes"],
+        scale_bytes_per_sync=r0["scale_bytes"],
+        step_ms_two_processes_sharing_one_card=[
+            [round(x, 1) for x in r["step_ms"]] for r in res],
+        note="not a speed figure: two processes share one card")
+    return {"flash_attention": sum(r["launches"]["flash_attention"]
+                                   for r in res)}
+
+
+DRYRUN_ONE_DEVICE = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import analyze_cell, fake_world
+from repro_torch.train import TrainHyper
+s, b, k = map(int, sys.argv[1:4])
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    rec = analyze_cell("smollm-360m", ShapeConfig("train_card", "train", s,
+                                                  b), mesh,
+                       TrainHyper(accum_steps=k))
+print(json.dumps(rec))
+"""
+
+
+def phase_dryrun() -> None:
+    """The dry-run in subprocesses (no card; a fake process group):
+    smollm-360m × train_4k on the (16, 16) pod mesh through the module's
+    command line, and one device at the train phase's own shape; the H100
+    roofline terms of each, and the train phase's measured step beside
+    the one-device cell's bound where that phase ran."""
+    from repro_torch.roofline import report
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.getcwd(), "src"),
+               CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-360m", "--shape", "train_4k", "--force"], env=env,
+        capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError("dryrun failed:\n" + run.stderr[-3000:])
+    with open(os.path.join(os.getcwd(), "artifacts", "dryrun_torch",
+                           "smollm-360m__train_4k__pod.json")) as f:
+        pod = json.load(f)
+    one = subprocess.run(
+        [sys.executable, "-c", DRYRUN_ONE_DEVICE, str(TRAIN_S),
+         str(TRAIN_B), str(TRAIN_ACCUM)], env=env, capture_output=True,
+        text=True, timeout=600)
+    if one.returncode != 0:
+        raise AssertionError("one-device dryrun failed:\n"
+                             + one.stderr[-3000:])
+    card = json.loads(one.stdout.strip().splitlines()[-1])
+    for name, rec in (("pod 16x16, train_4k", pod),
+                      (f"one device, {TRAIN_B}x{TRAIN_S} accum "
+                       f"{TRAIN_ACCUM}", card)):
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {name}: {rec}")
+        t = report.terms(rec)
+        log("dryrun", cell=name.replace(" ", "_"), chips=rec["chips"],
+            flops_per_device=f"{rec['flops_per_device']:.4e}",
+            bytes_per_device=f"{rec['bytes_per_device']:.4e}",
+            compute_s=f"{t['compute_s']:.6f}",
+            memory_s=f"{t['memory_s']:.6f}",
+            collective_s=f"{t['collective_s']:.6f}", bound=t["bound"],
+            step_s=f"{t['step_s']:.6f}", mfu=f"{t['mfu']:.4f}",
+            temp_gb=f"{rec['memory']['temp_bytes'] / 1e9:.3f}",
+            replicated=rec["replicated"], trace_s=rec["trace_s"])
+        top = sorted(rec["collectives"], key=lambda o: -o["count"] * report
+                     .wire_bytes(o["kind"], o["operand_bytes"],
+                                 o["group_size"]) / report.link_bw(o))[:3]
+        log("dryrun", cell=name.replace(" ", "_"), top_collectives=[
+            (o["kind"], o["operand_bytes"], o["group_size"], o["span"],
+             o["count"]) for o in top])
+    if "ms_per_step" in TRAIN_RESULT:
+        ms = TRAIN_RESULT["ms_per_step"]
+        step_s = report.terms(card)["step_s"]
+        log("dryrun", train_measured_ms_per_step=f"{ms:.3f}",
+            one_device_roofline_ms=f"{step_s * 1e3:.3f}",
+            share_of_roofline=f"{step_s * 1e3 / ms:.4f}",
+            note="the roofline counts the einsum attention path; the "
+                 "train phase runs the flash kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this script runs on the "
               "GPU only", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["_pod_sync_rank"]:
+        pod_sync_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     # with no arguments every phase runs and the result lines are printed;
     # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
     # zamba2_serve, moe_parity, moe_serve, whisper_parity, whisper_serve,
-    # xlstm_parity, xlstm_serve, train_parity, train, profile)
+    # xlstm_parity, xlstm_serve, train_parity, train, pod_sync, dryrun,
+    # profile)
     # runs just those, to debug or to trace a serve or train phase; profile
     # alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
                               "zamba2_parity", "zamba2_serve", "moe_parity",
                               "moe_serve", "whisper_parity", "whisper_serve",
                               "xlstm_parity", "xlstm_serve", "train_parity",
-                              "train"]
+                              "train", "pod_sync", "dryrun"]
     profile = "profile" in phases
     t_start = time.perf_counter()
 
@@ -2259,6 +2551,10 @@ def main() -> int:
         launches.update(timed("train_parity", phase_train_parity, gen(5)))
     if "train" in phases:
         launches["smollm-360m train"] = timed("train", phase_train, profile)
+    if "pod_sync" in phases:
+        launches["smollm-360m pod_sync"] = timed("pod_sync", phase_pod_sync)
+    if "dryrun" in phases:
+        timed("dryrun", phase_dryrun)
     log("time", of="all", seconds=f"{time.perf_counter() - t_start:.3f}")
     if sys.argv[1:]:
         return 0

@@ -42,5 +42,24 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells():
+    """All (arch, shape) dry-run cells, with skip rationale for the
+    impossible ones (documented in DESIGN.md §Arch-applicability)."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            skip = None
+            if sname == "long_500k" and not cfg.subquadratic:
+                skip = ("full-attention architecture: 500k decode needs "
+                        "sub-quadratic attention (see DESIGN.md)")
+            out.append((arch, sname, skip))
+    return out
+
+
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "get_config",
-           "get_smoke_config"]
+           "get_smoke_config", "get_shape", "cells"]

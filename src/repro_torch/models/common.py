@@ -175,6 +175,22 @@ def init_params(schema: Any, generator: Optional[torch.Generator],
     return walk(schema)
 
 
+def token_specs(batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    """Train/prefill inputs as meta tensors (the JAX package's
+    ShapeDtypeStructs)."""
+    return {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                  device="meta"),
+            "labels": torch.empty((batch, seq), dtype=torch.int32,
+                                  device="meta")}
+
+
+def decode_specs(batch: int) -> Dict[str, torch.Tensor]:
+    """Decode-step inputs as meta tensors."""
+    return {"tokens": torch.empty((batch, 1), dtype=torch.int32,
+                                  device="meta"),
+            "pos": torch.empty((batch,), dtype=torch.int32, device="meta")}
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every tensor of a nested dict of tensors."""
     if isinstance(tree, dict):

@@ -3,7 +3,10 @@ RoPE, attention (full-sequence and against the ring KV cache), MLP,
 embeddings and the training loss.
 
 Functional, as in the JAX package: params are nested dicts of tensors and
-these functions only compute.  Layouts follow the JAX package: activations
+these functions only compute.  ``rules`` is an optional logical-axis table
+(`repro_torch.parallel.sharding`): with rules, DTensor activations are
+redistributed at the JAX package's sharding-constraint sites; without,
+those sites are the identity.  Layouts follow the JAX package: activations
 [B, S, d], heads [B, S, H, D].
 """
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import logical_constraint as lc
 from .common import to_dtype
 
 NEG_INF = -1e30
@@ -114,7 +118,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, key_pos: torch.Tensor,
                      qpos: torch.Tensor, *,
-                     sliding_window: Optional[int] = None) -> torch.Tensor:
+                     sliding_window: Optional[int] = None,
+                     rules=None) -> torch.Tensor:
     """Single-token attention against a ring-buffer cache.
 
     q: [B, 1, H, D]; k_cache/v_cache: [B, W, Hkv, D]; key_pos: [B, W]
@@ -138,7 +143,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     # probs in the cache's dtype: the AV product reads the cache as stored
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    return lc(out.reshape(b, 1, h, d).to(q.dtype),
+              ("batch", None, "heads", None), rules)
 
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -177,13 +183,14 @@ def qkv(params, y: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, proj("wv", cfg.n_kv_heads)
 
 
-def attn_out(params, attn: torch.Tensor, cfg) -> torch.Tensor:
+def attn_out(params, attn: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     """Output projection of attention heads [B, S, H, D] → [B, S, d]."""
-    return attn.flatten(2) @ cast(params["wo"], to_dtype(cfg.compute_dtype))
+    out = attn.flatten(2) @ cast(params["wo"], to_dtype(cfg.compute_dtype))
+    return lc(out, ("batch", "seq", "act_embed"), rules)
 
 
 def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              cache: Optional[Tuple] = None,
+              rules=None, cache: Optional[Tuple] = None,
               sliding_window: Optional[int] = None, norm: bool = True):
     """Pre-norm GQA attention block.  Returns (out, new_cache).
 
@@ -194,37 +201,42 @@ def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     ``norm=False`` skips the input norm (parallel blocks norm once).
     """
     y = rms_norm(x, params["ln"], cfg.norm_eps) if norm else x
+    q, k, v = qkv(params, y, cfg,
+                  positions if cache is None else positions[:, None])
+    q = lc(q, ("batch", "seq", "heads", None), rules)
+    k = lc(k, ("batch", "seq", "kv_heads", None), rules)
     if cache is None:
-        q, k, v = qkv(params, y, cfg, positions)
         attn = attention(q, k, v, causal=True, sliding_window=sliding_window,
                          impl=cfg.attn_impl)
-        return attn_out(params, attn, cfg), None
-    q, k, v = qkv(params, y, cfg, positions[:, None])
+        return attn_out(params, attn, cfg, rules), None
     k_cache, v_cache, key_pos = cache_write(*cache, k, v, positions)
     dt = to_dtype(cfg.compute_dtype)
     attn = decode_attention(q, cast(k_cache, dt), cast(v_cache, dt),
                             key_pos, positions,
-                            sliding_window=sliding_window)
-    return attn_out(params, attn, cfg), (k_cache, v_cache, key_pos)
+                            sliding_window=sliding_window, rules=rules)
+    return attn_out(params, attn, cfg, rules), (k_cache, v_cache, key_pos)
 
 
 # ------------------------------------------------------------------- MLPs
-def swiglu(params, x: torch.Tensor, cfg,
+def swiglu(params, x: torch.Tensor, cfg, rules=None,
            pre_normed: bool = False) -> torch.Tensor:
     dt = to_dtype(cfg.compute_dtype)
     y = x if pre_normed else rms_norm(x, params["ln"], cfg.norm_eps)
     h = F.silu(y @ cast(params["w_gate"], dt)) * (y @ cast(params["w_up"],
                                                           dt))
-    return h @ cast(params["w_down"], dt)
+    h = lc(h, ("batch", "seq", "act_mlp"), rules)
+    return lc(h @ cast(params["w_down"], dt), ("batch", "seq", "act_embed"),
+              rules)
 
 
-def gelu_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def gelu_mlp(params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     """LayerNorm, up-projection with bias, GELU in its tanh form (the
     default of `jax.nn.gelu`), down-projection with bias."""
     dt = to_dtype(cfg.compute_dtype)
     y = layer_norm(x, params["ln"], params["ln_b"], cfg.norm_eps)
     h = F.gelu(y @ cast(params["w_up"], dt) + cast(params["b_up"], dt),
                approximate="tanh")
+    h = lc(h, ("batch", "seq", "act_mlp"), rules)
     return h @ cast(params["w_down"], dt) + cast(params["b_down"], dt)
 
 
@@ -270,7 +282,7 @@ def moe_slots(top_e: torch.Tensor, e_pad: int) -> torch.Tensor:
 ROUTE_LOG = None
 
 
-def moe_block(params, x: torch.Tensor, cfg):
+def moe_block(params, x: torch.Tensor, cfg, rules=None):
     """Top-k expert routing with a fixed capacity per expert (gather and
     scatter dispatch), as the JAX package's `moe_block`.  Returns (out,
     aux).  Choices past an expert's capacity are dropped: they go to an
@@ -298,9 +310,11 @@ def moe_block(params, x: torch.Tensor, cfg):
                             device=x.device)
     expert_in = expert_in.index_put((e_idx, s_idx),
                                     cast(flat[tok_idx], dt))[:-1]
+    expert_in = lc(expert_in, ("experts", None, "act_embed"), rules)
     h = F.silu(torch.bmm(expert_in, cast(params["w_gate"], dt))) \
         * torch.bmm(expert_in, cast(params["w_up"], dt))
-    expert_out = torch.bmm(h, cast(params["w_down"], dt))
+    expert_out = lc(torch.bmm(h, cast(params["w_down"], dt)),
+                    ("experts", None, "act_embed"), rules)
     gathered = expert_out[torch.where(keep, flat_e, 0), s_idx]   # [T·k, d]
     weight = torch.where(keep, top_p.reshape(-1), 0.0).to(dt)
     out = torch.zeros((n_tok, d), dtype=dt, device=x.device).index_add(
@@ -309,14 +323,16 @@ def moe_block(params, x: torch.Tensor, cfg):
 
 
 # -------------------------------------------------------------- embeddings
-def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed(params, tokens: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first
-    return cast(params["embedding"][tokens], to_dtype(cfg.compute_dtype))
+    x = cast(params["embedding"][tokens], to_dtype(cfg.compute_dtype))
+    return lc(x, ("batch", "seq", "act_embed"), rules)
 
 
-def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     w = params.get("unembedding", params["embedding"])
-    return x @ cast(w, to_dtype(cfg.compute_dtype)).T
+    return lc(x @ cast(w, to_dtype(cfg.compute_dtype)).T,
+              ("batch", "seq", "act_vocab"), rules)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

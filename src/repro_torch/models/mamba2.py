@@ -22,9 +22,11 @@ import torch.nn.functional as F
 # (xh [B,S,H,Pd], post-softplus dt, a_log, b/c [B,S,N], d_skip, chunk, s0)
 from repro_torch.kernels.mamba2_scan import ssd_scan as ssd_chunked
 
+from ..parallel.sharding import logical_constraint as lc
 from . import layers as L
-from .common import (P, attn_cache_spec, decode_window, layer_views,
-                     padded_vocab, remat, stacked, to_dtype)
+from .common import (P, attn_cache_spec, decode_specs, decode_window,
+                     layer_views, padded_vocab, remat, stacked, to_dtype,
+                     token_specs)
 
 
 # --------------------------------------------------------------- structure
@@ -126,7 +128,8 @@ def _split_proj(cfg, zxbcdt):
     return torch.split(zxbcdt, [inner, inner, n, n, nheads], dim=-1)
 
 
-def mamba2_block(params, x_in, cfg, state: Optional[Tuple] = None):
+def mamba2_block(params, x_in, cfg, rules=None,
+                 state: Optional[Tuple] = None):
     """Pre-norm Mamba2 block.  Returns (out, new_state).
 
     Prefill: state=None (zero initial state, discarded).
@@ -158,6 +161,7 @@ def mamba2_block(params, x_in, cfg, state: Optional[Tuple] = None):
         conv_out = F.silu(acc + params["conv_b"].float())
         xs, b, c = torch.split(conv_out, [inner, n, n], dim=-1)
         xh = xs.reshape(*xs.shape[:2], nheads, s_cfg.head_dim)
+        xh = lc(xh, ("batch", "seq", "heads", None), rules)
         yh, _ = ssd_chunked(xh, dt, params["a_log"], b, c, params["d_skip"],
                             chunk=s_cfg.chunk)
     else:
@@ -175,15 +179,16 @@ def mamba2_block(params, x_in, cfg, state: Optional[Tuple] = None):
     yv = yh.reshape(*yh.shape[:2], inner)
     # gated RMSNorm (Mamba2: norm(y) ⊙ silu(z)), then out-projection
     yv = L.rms_norm(yv.to(dt_c), params["norm"], cfg.norm_eps) * F.silu(z)
-    return yv @ L.cast(params["out_proj"], dt_c), new_state
+    out = yv @ L.cast(params["out_proj"], dt_c)
+    return lc(out, ("batch", "seq", "act_embed"), rules), new_state
 
 
-def _shared_attn(params, x, cfg, *, positions, cache=None):
+def _shared_attn(params, x, cfg, *, positions, rules=None, cache=None):
     attn, new_cache = L.gqa_block(params, x, cfg, positions=positions,
-                                  cache=cache,
+                                  rules=rules, cache=cache,
                                   sliding_window=cfg.sliding_window)
     x = x + attn
-    x = x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg)
+    x = x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg, rules=rules)
     return x, new_cache
 
 
@@ -192,14 +197,14 @@ def _layer(params, i: int) -> Dict[str, torch.Tensor]:
 
 
 # ----------------------------------------------------------------- forward
-def forward(params, batch, cfg) -> torch.Tensor:
+def forward(params, batch, cfg, rules=None) -> torch.Tensor:
     tokens = batch["tokens"]
-    x = L.embed(params, tokens, cfg)
+    x = L.embed(params, tokens, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     period = cfg.hybrid.attn_period if cfg.hybrid else cfg.n_layers
 
     def body(p, x):
-        return x + mamba2_block(p, x, cfg)[0]
+        return x + mamba2_block(p, x, cfg, rules=rules)[0]
 
     body = remat(body, cfg)
     layers = layer_views(params["layers"])
@@ -210,9 +215,9 @@ def forward(params, batch, cfg) -> torch.Tensor:
         start += size
         if size == period and "shared_attn" in params:
             x, _ = _shared_attn(params["shared_attn"], x, cfg,
-                                positions=positions)
+                                positions=positions, rules=rules)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg)
+    return L.unembed(params, x, cfg, rules)
 
 
 # ------------------------------------------------------------------ decode
@@ -234,18 +239,18 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     return spec
 
 
-def decode_step(params, cache, batch, cfg):
+def decode_step(params, cache, batch, cfg, rules=None):
     """One token: batch = {"tokens": [B,1], "pos": [B]}.  Returns (logits
     [B,1,V], cache); the conv, SSM and ring KV caches are updated in
     place."""
-    x = L.embed(params, batch["tokens"], cfg)
+    x = L.embed(params, batch["tokens"], cfg, rules)
     pos = batch["pos"]
     period = cfg.hybrid.attn_period if cfg.hybrid else cfg.n_layers
     start, site = 0, 0
     for size in group_sizes(cfg):
         for i in range(start, start + size):
             out, (conv, ssm) = mamba2_block(
-                _layer(params, i), x, cfg,
+                _layer(params, i), x, cfg, rules=rules,
                 state=(cache["conv"][i], cache["ssm"][i]))
             cache["conv"][i].copy_(conv)
             cache["ssm"][i].copy_(ssm)
@@ -254,8 +259,15 @@ def decode_step(params, cache, batch, cfg):
         if size == period and "shared_attn" in params:
             ac = cache["attn"]
             x, _ = _shared_attn(
-                params["shared_attn"], x, cfg, positions=pos,
+                params["shared_attn"], x, cfg, positions=pos, rules=rules,
                 cache=(ac["k"][site], ac["v"][site], ac["key_pos"][site]))
             site += 1
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg), cache
+    return L.unembed(params, x, cfg, rules), cache
+
+
+def input_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """The step's inputs at ``shape`` as meta tensors."""
+    if shape.kind == "decode":
+        return decode_specs(shape.global_batch)
+    return token_specs(shape.global_batch, shape.seq_len)

@@ -17,7 +17,7 @@ import torch
 from . import layers as L
 from .common import (P, attn_cache_spec, decode_window, layer_views,
                      padded_vocab, remat, stacked)
-from .dense import layer
+from .dense import input_specs, layer  # noqa: F401
 
 
 def layer_schema(cfg) -> Dict[str, P]:
@@ -53,23 +53,24 @@ def schema(cfg) -> Dict[str, Any]:
     return s
 
 
-def _block(params, x, cfg, *, positions, cache=None):
+def _block(params, x, cfg, *, positions, rules=None, cache=None):
     """Attention, then the routed FFN; returns (x, new_cache, aux)."""
     attn, new_cache = L.gqa_block(params, x, cfg, positions=positions,
-                                  cache=cache,
+                                  rules=rules, cache=cache,
                                   sliding_window=cfg.sliding_window)
     x = x + attn
-    moe_out, aux = L.moe_block({**params, "ln": params["ln2"]}, x, cfg)
+    moe_out, aux = L.moe_block({**params, "ln": params["ln2"]}, x, cfg,
+                               rules=rules)
     return x + moe_out, new_cache, aux
 
 
-def forward(params, batch, cfg, return_aux: bool = False):
+def forward(params, batch, cfg, rules=None, return_aux: bool = False):
     tokens = batch["tokens"]
-    x = L.embed(params, tokens, cfg)
+    x = L.embed(params, tokens, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
 
     def body(p, x):
-        x, _, aux = _block(p, x, cfg, positions=positions)
+        x, _, aux = _block(p, x, cfg, positions=positions, rules=rules)
         return x, aux
 
     # under remat the recompute routes as the forward did: the same layer
@@ -80,7 +81,7 @@ def forward(params, batch, cfg, return_aux: bool = False):
         x, aux_l = body(p, x)
         aux = aux + aux_l
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = L.unembed(params, x, cfg)
+    logits = L.unembed(params, x, cfg, rules)
     if return_aux:
         return logits, aux
     return logits
@@ -91,17 +92,17 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, P]:
     return attn_cache_spec(cfg, batch, decode_window(cfg, max_len))
 
 
-def decode_step(params, cache, batch, cfg):
+def decode_step(params, cache, batch, cfg, rules=None):
     """One token: batch = {"tokens": [B, 1], "pos": [B]}.  Returns (logits
     [B, 1, V], cache); the cache's tensors are updated in place.  The
     capacity is the decode batch's (B·k/E·capacity_factor), so decode
     drops choices that a forward over the whole sequence keeps, as in the
     JAX package."""
-    x = L.embed(params, batch["tokens"], cfg)
+    x = L.embed(params, batch["tokens"], cfg, rules)
     pos = batch["pos"]
     for i in range(cfg.n_layers):
         x, _, _ = _block(layer(params, i), x, cfg, positions=pos,
-                         cache=(cache["k"][i], cache["v"][i],
+                         rules=rules, cache=(cache["k"][i], cache["v"][i],
                                 cache["key_pos"][i]))
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg), cache
+    return L.unembed(params, x, cfg, rules), cache

@@ -2,11 +2,12 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Union
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from ..parallel.sharding import abstract_params
 from . import dense, mamba2, moe, whisper, xlstm
 from .common import P, init_params, resolve_device
 
@@ -27,6 +28,10 @@ class Model:
 
     def schema(self) -> Any:
         return self.module.schema(self.cfg)
+
+    def abstract_params(self) -> Any:
+        """The params as meta tensors (no storage), for the dry-run."""
+        return abstract_params(self.schema(), self.cfg.param_dtype)
 
     def init(self, seed_or_generator: Union[int, torch.Generator] = 0,
              device: Union[str, torch.device] = "cuda") -> Any:
@@ -55,12 +60,13 @@ class Model:
         expert = 3 * self.cfg.d_model * m.d_expert * self.cfg.n_layers
         return self.param_count() - expert * (m.e_pad - m.top_k)
 
-    def forward(self, params, batch) -> torch.Tensor:
-        return self.module.forward(params, batch, self.cfg)
+    def forward(self, params, batch, rules=None) -> torch.Tensor:
+        return self.module.forward(params, batch, self.cfg, rules=rules)
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, rules=None):
         """One token against ``cache``, which it updates in place."""
-        return self.module.decode_step(params, cache, batch, self.cfg)
+        return self.module.decode_step(params, cache, batch, self.cfg,
+                                       rules=rules)
 
     def cache_schema(self, batch: int, max_len: int) -> Any:
         return self.module.cache_spec(self.cfg, batch, max_len)
@@ -72,6 +78,16 @@ class Model:
         normaliser 1e-6)."""
         return init_params(self.cache_schema(batch, max_len), None,
                            self.cfg.compute_dtype, resolve_device(device))
+
+    def abstract_cache(self, batch: int, max_len: int) -> Any:
+        """The decode cache as meta tensors."""
+        return abstract_params(self.cache_schema(batch, max_len),
+                               self.cfg.compute_dtype)
+
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """The inputs of the step of ``shape`` (a `ShapeConfig`) as meta
+        tensors."""
+        return self.module.input_specs(self.cfg, shape)
 
 
 def get_model(cfg) -> Model:

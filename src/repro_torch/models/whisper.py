@@ -23,9 +23,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import logical_constraint as lc
 from . import layers as L
-from .common import (P, attn_cache_spec, decode_window, layer_views,
-                     padded_vocab, remat, stacked, to_dtype)
+from .common import (P, attn_cache_spec, decode_specs, decode_window,
+                     layer_views, padded_vocab, remat, stacked, to_dtype,
+                     token_specs)
 
 
 # ------------------------------------------------------------------ schema
@@ -98,7 +100,7 @@ def _proj(params, prefix, name, y, heads, hd, dt) -> torch.Tensor:
     return out
 
 
-def _attn(params, prefix, x, kv_src, cfg, *, causal,
+def _attn(params, prefix, x, kv_src, cfg, *, causal, rules=None,
           cache: Optional[Tuple] = None, positions=None,
           static_kv: Optional[Tuple] = None):
     """LN attention block with biases, no RoPE.  Returns (out, cache').
@@ -113,6 +115,7 @@ def _attn(params, prefix, x, kv_src, cfg, *, causal,
     y = L.layer_norm(x, params[f"{prefix}ln"], params[f"{prefix}ln_b"],
                      cfg.norm_eps)
     q = _proj(params, prefix, "wq", y, cfg.n_heads, hd, dt)
+    q = lc(q, ("batch", "seq", "heads", None), rules)
 
     new_cache = None
     if static_kv is not None:                    # decode cross-attn
@@ -126,25 +129,27 @@ def _attn(params, prefix, x, kv_src, cfg, *, causal,
         new_cache = L.cache_write(*cache, k, v, positions)
         k_c, v_c, key_pos = new_cache
         attn = L.decode_attention(q, L.cast(k_c, dt), L.cast(v_c, dt),
-                                  key_pos, positions)
+                                  key_pos, positions, rules=rules)
     else:                                        # full-sequence
         # self-attn keys come from the normed input; cross-attn keys come
         # from the (already final-normed) encoder output
         yk = y if kv_src is x else kv_src
         k = _proj(params, prefix, "wk", yk, cfg.n_kv_heads, hd, dt)
         v = _proj(params, prefix, "wv", yk, cfg.n_kv_heads, hd, dt)
+        k = lc(k, ("batch", "seq", "kv_heads", None), rules)
         attn = L.attention(q, k, v, causal=causal, impl=cfg.attn_impl)
 
     out = attn.flatten(2) @ L.cast(params[f"{prefix}wo"], dt) \
         + L.cast(params[f"{prefix}wo_b"], dt)
-    return out, new_cache
+    return lc(out, ("batch", "seq", "act_embed"), rules), new_cache
 
 
-def _mlp(params, x, cfg):
+def _mlp(params, x, cfg, rules=None):
     return L.gelu_mlp(
         {"ln": params["mlp_ln"], "ln_b": params["mlp_ln_b"],
          "w_up": params["w_up"], "b_up": params["b_up"],
-         "w_down": params["w_down"], "b_down": params["b_down"]}, x, cfg)
+         "w_down": params["w_down"], "b_down": params["b_down"]}, x, cfg,
+        rules)
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -165,16 +170,17 @@ def _device_sinusoids(length: int, channels: int, dtype: torch.dtype,
 
 
 # --------------------------------------------------------------- enc / dec
-def encode(params, frames, cfg) -> torch.Tensor:
+def encode(params, frames, cfg, rules=None) -> torch.Tensor:
     """frames [B, encoder_seq, d] → the final-normed encoder output."""
     dt = to_dtype(cfg.compute_dtype)
     x = frames.to(dt) + _device_sinusoids(cfg.encdec.encoder_seq,
                                           cfg.d_model, dt, frames.device)
+    x = lc(x, ("batch", "seq", "act_embed"), rules)
 
     def body(p, x):
-        attn, _ = _attn(p, "self_", x, x, cfg, causal=False)
+        attn, _ = _attn(p, "self_", x, x, cfg, causal=False, rules=rules)
         x = x + attn
-        return x + _mlp(p, x, cfg)
+        return x + _mlp(p, x, cfg, rules)
 
     body = remat(body, cfg)
     for p in layer_views(params["encoder"]):
@@ -183,18 +189,18 @@ def encode(params, frames, cfg) -> torch.Tensor:
                         cfg.norm_eps)
 
 
-def _dec_layer(p, x, enc_out, cfg, *, positions=None, cache=None,
-               cross=None):
+def _dec_layer(p, x, enc_out, cfg, *, rules=None, positions=None,
+               cache=None, cross=None):
     """One decoder layer: causal self-attention (against ``cache`` in
     decode), cross-attention over ``enc_out`` or the precomputed
     ``cross`` (k, v), the MLP.  Returns (x, new self cache)."""
-    attn, new_self = _attn(p, "self_", x, x, cfg, causal=True, cache=cache,
-                           positions=positions)
+    attn, new_self = _attn(p, "self_", x, x, cfg, causal=True, rules=rules,
+                           cache=cache, positions=positions)
     x = x + attn
-    attn, _ = _attn(p, "cross_", x, enc_out, cfg, causal=False,
+    attn, _ = _attn(p, "cross_", x, enc_out, cfg, causal=False, rules=rules,
                     static_kv=cross)
     x = x + attn
-    return x + _mlp(p, x, cfg), new_self
+    return x + _mlp(p, x, cfg, rules), new_self
 
 
 def _final_norm(params, x, cfg):
@@ -202,22 +208,22 @@ def _final_norm(params, x, cfg):
                         cfg.norm_eps)
 
 
-def forward(params, batch, cfg) -> torch.Tensor:
+def forward(params, batch, cfg, rules=None) -> torch.Tensor:
     """batch: {"frames": [B, encoder_seq, d], "tokens": [B, T]} → logits
     [B, T, V]."""
-    enc_out = encode(params, batch["frames"], cfg)
+    enc_out = encode(params, batch["frames"], cfg, rules)
     tokens = batch["tokens"]
     dt = to_dtype(cfg.compute_dtype)
-    x = L.embed(params, tokens, cfg) \
+    x = L.embed(params, tokens, cfg, rules) \
         + L.cast(params["pos_emb"][:tokens.shape[1]], dt)[None]
 
     def body(p, x):
-        return _dec_layer(p, x, enc_out, cfg)[0]
+        return _dec_layer(p, x, enc_out, cfg, rules=rules)[0]
 
     body = remat(body, cfg)
     for p in layer_views(params["decoder"]):
         x = body(p, x)
-    return L.unembed(params, _final_norm(params, x, cfg), cfg)
+    return L.unembed(params, _final_norm(params, x, cfg), cfg, rules)
 
 
 # ------------------------------------------------------------------ decode
@@ -237,7 +243,8 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     }
 
 
-def make_cross_kv(params, enc_out, cfg) -> Dict[str, torch.Tensor]:
+def make_cross_kv(params, enc_out, cfg,
+                  rules=None) -> Dict[str, torch.Tensor]:
     """The decoder's cross-attention K/V from the encoder output, stacked
     on layers (the prefill step of serving): {"k", "v"} [L, B,
     encoder_seq, Hkv, D]."""
@@ -250,18 +257,30 @@ def make_cross_kv(params, enc_out, cfg) -> Dict[str, torch.Tensor]:
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def decode_step(params, cache, batch, cfg):
+def decode_step(params, cache, batch, cfg, rules=None):
     """One token: batch = {"tokens": [B,1], "pos": [B]} against ``cache``
     (its "cross" from `make_cross_kv`).  Returns (logits [B,1,V], cache);
     the self-attention ring cache is updated in place."""
     tokens, pos = batch["tokens"], batch["pos"]
     dt = to_dtype(cfg.compute_dtype)
     # gather, then cast: the same values as casting the table first
-    x = L.embed(params, tokens, cfg) \
+    x = L.embed(params, tokens, cfg, rules) \
         + L.cast(params["pos_emb"][pos.long()], dt)[:, None]
     sc, cc = cache["self"], cache["cross"]
     for i, p in enumerate(layer_views(params["decoder"])):
-        x, _ = _dec_layer(p, x, None, cfg, positions=pos,
+        x, _ = _dec_layer(p, x, None, cfg, rules=rules, positions=pos,
                           cache=(sc["k"][i], sc["v"][i], sc["key_pos"][i]),
                           cross=(cc["k"][i], cc["v"][i]))
-    return L.unembed(params, _final_norm(params, x, cfg), cfg), cache
+    return L.unembed(params, _final_norm(params, x, cfg), cfg,
+                     rules), cache
+
+
+def input_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """The step's inputs at ``shape`` as meta tensors."""
+    if shape.kind == "decode":
+        return decode_specs(shape.global_batch)
+    specs = {"frames": torch.empty(
+        (shape.global_batch, cfg.encdec.encoder_seq, cfg.d_model),
+        dtype=to_dtype(cfg.compute_dtype), device="meta")}
+    specs.update(token_specs(shape.global_batch, shape.seq_len))
+    return specs

@@ -21,9 +21,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import logical_constraint as lc
 from . import layers as L
-from .common import (P, group_views, layer_views, padded_vocab, remat,
-                     stacked, to_dtype)
+from .common import (P, decode_specs, group_views, layer_views,
+                     padded_vocab, remat, stacked, to_dtype, token_specs)
 
 # While a list, every `mlstm_chunked` chunk appends how far its
 # normaliser sits above its floor, (|den| - exp(-m)) / exp(-m) [B, Q, H]
@@ -186,7 +187,7 @@ def mlstm_step(state, q, k, v, ig, fg):
     return num / den[..., None], (c, n, m_new)
 
 
-def mlstm_block(params, x, cfg, state=None):
+def mlstm_block(params, x, cfg, rules=None, state=None):
     """Pre-norm mLSTM block.  Returns (out, new_state): a full sequence
     with state=None (zero initial state, discarded), or one token x
     [B,1,d] against state = (C, n, m)."""
@@ -202,7 +203,8 @@ def mlstm_block(params, x, cfg, state=None):
     ig, fg = gates[..., :h], gates[..., h:]
 
     if state is None:
-        hh, _ = mlstm_chunked(q.view(b, s, h, dkh), k.view(b, s, h, dkh),
+        qh = lc(q.view(b, s, h, dkh), ("batch", "seq", "heads", None), rules)
+        hh, _ = mlstm_chunked(qh, k.view(b, s, h, dkh),
                               v.view(b, s, h, dvh), ig, fg, cfg.xlstm.chunk)
         new_state = None
     else:
@@ -213,7 +215,8 @@ def mlstm_block(params, x, cfg, state=None):
         hh = hh[:, None]
     hv = hh.reshape(b, s, dv).to(dt)
     g = F.silu(y @ L.cast(params["wg"], dt))
-    return (hv * g) @ L.cast(params["wo"], dt), new_state
+    out = (hv * g) @ L.cast(params["wo"], dt)
+    return lc(out, ("batch", "seq", "act_embed"), rules), new_state
 
 
 # ------------------------------------------------------------------- sLSTM
@@ -249,26 +252,28 @@ def slstm_scan(params, y, cfg, state=None):
     return torch.stack(hs, dim=1).reshape(b, s, d), (c, n, m, h_prev)
 
 
-def slstm_block(params, x, cfg, state=None):
+def slstm_block(params, x, cfg, rules=None, state=None):
     """sLSTM block and its SwiGLU feed-forward, residuals included.
     Returns (x', new_state)."""
     dt = to_dtype(cfg.compute_dtype)
     y = L.rms_norm(x, params["ln"], cfg.norm_eps)
     hs, new_state = slstm_scan(params, y, cfg, state=state)
-    x = x + hs.to(dt) @ L.cast(params["wo"], dt)
-    x = x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg)
+    out = lc(hs.to(dt) @ L.cast(params["wo"], dt),
+             ("batch", "seq", "act_embed"), rules)
+    x = x + out
+    x = x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg, rules=rules)
     return x, new_state
 
 
 # ----------------------------------------------------------------- forward
-def forward(params, batch, cfg) -> torch.Tensor:
-    x = L.embed(params, batch["tokens"], cfg)
+def forward(params, batch, cfg, rules=None) -> torch.Tensor:
+    x = L.embed(params, batch["tokens"], cfg, rules)
 
     def mbody(p, x):
-        return x + mlstm_block(p, x, cfg)[0]
+        return x + mlstm_block(p, x, cfg, rules=rules)[0]
 
     def sbody(p, x):
-        return slstm_block(p, x, cfg)[0]
+        return slstm_block(p, x, cfg, rules=rules)[0]
 
     mbody, sbody = remat(mbody, cfg), remat(sbody, cfg)
     for group, sp in zip(group_views(params["mlstm"]),
@@ -277,7 +282,7 @@ def forward(params, batch, cfg) -> torch.Tensor:
             x = mbody(p, x)
         x = sbody(sp, x)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg)
+    return L.unembed(params, x, cfg, rules)
 
 
 # ------------------------------------------------------------------ decode
@@ -307,22 +312,29 @@ def cache_spec(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     }
 
 
-def decode_step(params, cache, batch, cfg):
+def decode_step(params, cache, batch, cfg, rules=None):
     """One token: batch = {"tokens": [B,1], "pos": [B]} (the state holds
     the history, so positions are not read).  Returns (logits [B,1,V],
     cache); every state leaf is updated in place."""
-    x = L.embed(params, batch["tokens"], cfg)
+    x = L.embed(params, batch["tokens"], cfg, rules)
     for g, (group, sp) in enumerate(zip(group_views(params["mlstm"]),
                                         layer_views(params["slstm"]))):
         for i, p in enumerate(group):
             st = (cache["m_c"][g, i], cache["m_n"][g, i], cache["m_m"][g, i])
-            out, new = mlstm_block(p, x, cfg, state=st)
+            out, new = mlstm_block(p, x, cfg, rules=rules, state=st)
             for dst, src in zip(st, new):
                 dst.copy_(src)
             x = x + out
         st = tuple(cache[name][g] for name in ("s_c", "s_n", "s_m", "s_h"))
-        x, new = slstm_block(sp, x, cfg, state=st)
+        x, new = slstm_block(sp, x, cfg, rules=rules, state=st)
         for dst, src in zip(st, new):
             dst.copy_(src)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.unembed(params, x, cfg), cache
+    return L.unembed(params, x, cfg, rules), cache
+
+
+def input_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """The step's inputs at ``shape`` as meta tensors."""
+    if shape.kind == "decode":
+        return decode_specs(shape.global_batch)
+    return token_specs(shape.global_batch, shape.seq_len)

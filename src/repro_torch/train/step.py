@@ -31,16 +31,17 @@ class TrainHyper:
     accum_steps: int = 1            # gradient-accumulation microbatches
 
 
-def make_loss_fn(model) -> Callable:
+def make_loss_fn(model, rules=None) -> Callable:
     """(params, batch) -> (ce + aux, {"ce", "aux"}): aux is the MoE
     router's load-balancing loss summed over the layers, 0 without MoE."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
         if cfg.moe is None:
-            ce = cross_entropy(model.forward(params, batch), batch["labels"])
+            ce = cross_entropy(model.forward(params, batch, rules),
+                               batch["labels"])
             return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
-        logits, aux = model.module.forward(params, batch, cfg,
+        logits, aux = model.module.forward(params, batch, cfg, rules=rules,
                                            return_aux=True)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
@@ -56,14 +57,29 @@ def init_state(model, seed_or_generator: Union[int, torch.Generator] = 0,
                                 device=resolve_device(device))}
 
 
-def make_grad_fn(model, hyper: TrainHyper = TrainHyper()) -> Callable:
+def abstract_state(model) -> Dict[str, Any]:
+    """`init_state`'s tree as meta tensors (no storage), for the dry-run:
+    the params in their dtype, fp32 moments, int32 count and step."""
+    params = model.abstract_params()
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    scalar = lambda: torch.empty((), dtype=torch.int32,  # noqa: E731
+                                 device="meta")
+    return {"params": params,
+            "opt": opt.OptState(m=tree_map(f32, params),
+                                v=tree_map(f32, params), count=scalar()),
+            "step": scalar()}
+
+
+def make_grad_fn(model, hyper: TrainHyper = TrainHyper(),
+                 rules=None) -> Callable:
     """(params, batch) -> (loss, parts, grads), the gradient half of the
     train step: grads are fp32, like the params, in their tree.  With
     ``accum_steps = k`` the batch splits into k microbatches
     (``x.reshape(k, B/k, ...)``), grads and loss are summed over them and
     divided by k, and parts is empty, as in the JAX package; an MoE
     microbatch routes with its own capacity and aux loss."""
-    loss_fn = make_loss_fn(model)
+    loss_fn = make_loss_fn(model, rules)
     k = hyper.accum_steps
 
     def single(params, batch):
@@ -97,8 +113,9 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper()) -> Callable:
     return accumulated if k > 1 else single
 
 
-def make_train_step(model, hyper: TrainHyper = TrainHyper()) -> Callable:
-    grad_fn = make_grad_fn(model, hyper)
+def make_train_step(model, hyper: TrainHyper = TrainHyper(),
+                    rules=None) -> Callable:
+    grad_fn = make_grad_fn(model, hyper, rules)
 
     def train_step(state, batch):
         loss, parts, grads = grad_fn(state["params"], batch)
@@ -111,17 +128,17 @@ def make_train_step(model, hyper: TrainHyper = TrainHyper()) -> Callable:
     return train_step
 
 
-def make_serve_step(model) -> Callable:
+def make_serve_step(model, rules=None) -> Callable:
     def serve_step(params, cache, batch):
-        logits, cache = model.decode_step(params, cache, batch)
+        logits, cache = model.decode_step(params, cache, batch, rules)
         return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
 
     return serve_step
 
 
-def make_prefill_step(model) -> Callable:
+def make_prefill_step(model, rules=None) -> Callable:
     def prefill(params, batch):
-        logits = model.forward(params, batch)
+        logits = model.forward(params, batch, rules)
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
 
     return prefill

@@ -62,7 +62,7 @@ class Trainer:
     def __init__(self, model, pipeline: DataPipeline,
                  ckpt: CheckpointManager, hyper: TrainHyper = TrainHyper(),
                  cfg: TrainerConfig = TrainerConfig(),
-                 pod_sync: Optional[Callable] = None,
+                 rules=None, pod_sync: Optional[Callable] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.model = model
@@ -77,8 +77,9 @@ class Trainer:
         self.async_ckpt = AsyncCheckpointer(async_mgr)
         self.cfg = cfg
         self.hyper = hyper
+        self.rules = rules
         self.pod_sync = pod_sync
-        self.train_step = make_train_step(model, hyper)
+        self.train_step = make_train_step(model, hyper, rules)
         self.history: List[Dict[str, float]] = []
 
     # ------------------------------------------------------------ restart
@@ -151,7 +152,9 @@ class Trainer:
 
     # -------------------------------------------------------------- elastic
     def with_hosts(self, host_id: int, num_hosts: int) -> "Trainer":
-        """Elastic re-scale: same global step, new host topology."""
+        """Elastic re-scale: same global step, new host topology.  Like
+        the JAX package's, the new trainer has no ``rules`` and no
+        ``pod_sync``."""
         return Trainer(self.model, self.pipeline.with_hosts(host_id,
                                                             num_hosts),
                        self.ckpt, self.hyper, self.cfg, device=self.device)
