@@ -113,11 +113,14 @@ Phases, one line each; a failing phase raises and nothing catches it:
    the pre-sync params; each process must launch flash 32 × 2 × 4 times.
    The sync's ms, the int8 bytes per sync, the peak memory per process
    and whether gloo's all-gather takes CUDA tensors are printed.
-10. dryrun: ``repro_torch.launch.dryrun`` in a subprocess (no card, a
-   fake process group) for smollm-360m × train_4k on the (16, 16) mesh,
-   and for one device at the train phase's shape; the H100 roofline
-   terms of each, and the train phase's measured step beside the
-   one-device bound.
+10. dryrun: ``repro_torch.launch.dryrun`` in subprocesses (no card, a
+   fake process group) for smollm-360m × train_4k and qwen2-7b ×
+   prefill_32k on the (16, 16) mesh, and for one device at the train
+   phase's shape; the H100 roofline terms of each, and the train phase's
+   measured step beside the one-device bound.  Each pod cell is held
+   against the JAX package's numbers for it (`DRYRUN_REFERENCE`): at
+   most 1.25 × its FLOPs per device, a collective term at most 2 × its
+   or under 10 ms, and no view the counter had to replicate.
 
 Run it from the root of a checkout: it imports ``src/`` of the working
 directory.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -220,6 +223,12 @@ XLSTM_TIE, XLSTM_BATCHES = 1e-4, 3
 POD_RANKS, POD_STEPS, POD_SYNC_EVERY = 2, 4, 2
 # the train phase's measured median step, for the dryrun phase
 TRAIN_RESULT: dict = {}
+# the JAX package's dry-run of the same (16, 16) cells: FLOPs per device
+# from its HLO walk, and the collective term `report.terms` gives its
+# collectives (JAX 0.9 on a CPU, `python -m repro.launch.dryrun`); the
+# port's per-device counts must stay within `report.within_reference`
+DRYRUN_REFERENCE = {("smollm-360m", "train_4k"): (1.2717e14, 0.9217),
+                    ("qwen2-7b", "prefill_32k"): (1.1180e14, 0.0814)}
 GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL,
             "olmoe-1b-7b": SSD_TOL, "whisper-medium": SSD_TOL,
             "xlstm-1.3b": SSD_TOL}
@@ -2425,34 +2434,46 @@ print(json.dumps(rec))
 
 
 def phase_dryrun() -> None:
-    """The dry-run in subprocesses (no card; a fake process group):
-    smollm-360m × train_4k on the (16, 16) pod mesh through the module's
-    command line, and one device at the train phase's own shape; the H100
-    roofline terms of each, and the train phase's measured step beside
-    the one-device cell's bound where that phase ran."""
+    """The dry-run in subprocesses, all started together (no card; a fake
+    process group): smollm-360m × train_4k and qwen2-7b × prefill_32k on
+    the (16, 16) pod mesh through the module's command line, and one
+    device at the train phase's own shape; the H100 roofline terms of
+    each, each pod cell against the JAX package's (`DRYRUN_REFERENCE`),
+    and the train phase's measured step beside the one-device cell's
+    bound where that phase ran."""
     from repro_torch.roofline import report
     env = dict(os.environ, PYTHONPATH=os.path.join(os.getcwd(), "src"),
                CUDA_VISIBLE_DEVICES="")
-    run = subprocess.run(
+    procs = {cell: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-360m", "--shape", "train_4k", "--force"], env=env,
-        capture_output=True, text=True, timeout=600)
-    if run.returncode != 0:
-        raise AssertionError("dryrun failed:\n" + run.stderr[-3000:])
-    with open(os.path.join(os.getcwd(), "artifacts", "dryrun_torch",
-                           "smollm-360m__train_4k__pod.json")) as f:
-        pod = json.load(f)
-    one = subprocess.run(
+         cell[0], "--shape", cell[1], "--force"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in DRYRUN_REFERENCE}
+    procs["one"] = subprocess.Popen(
         [sys.executable, "-c", DRYRUN_ONE_DEVICE, str(TRAIN_S),
-         str(TRAIN_B), str(TRAIN_ACCUM)], env=env, capture_output=True,
-        text=True, timeout=600)
-    if one.returncode != 0:
-        raise AssertionError("one-device dryrun failed:\n"
-                             + one.stderr[-3000:])
-    card = json.loads(one.stdout.strip().splitlines()[-1])
-    for name, rec in (("pod 16x16, train_4k", pod),
-                      (f"one device, {TRAIN_B}x{TRAIN_S} accum "
-                       f"{TRAIN_ACCUM}", card)):
+         str(TRAIN_B), str(TRAIN_ACCUM)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    outs = {}
+    try:
+        for cell, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {cell} failed:\n{err[-3000:]}")
+            outs[cell] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells = []
+    for arch, shape in DRYRUN_REFERENCE:
+        with open(os.path.join(os.getcwd(), "artifacts", "dryrun_torch",
+                               f"{arch}__{shape}__pod.json")) as f:
+            cells.append((f"pod 16x16, {arch} {shape}", json.load(f)))
+    card = json.loads(outs["one"].strip().splitlines()[-1])
+    cells.append((f"one device, {TRAIN_B}x{TRAIN_S} accum {TRAIN_ACCUM}",
+                  card))
+    for name, rec in cells:
         if rec["status"] != "ok":
             raise AssertionError(f"dryrun {name}: {rec}")
         t = report.terms(rec)
@@ -2471,6 +2492,28 @@ def phase_dryrun() -> None:
         log("dryrun", cell=name.replace(" ", "_"), top_collectives=[
             (o["kind"], o["operand_bytes"], o["group_size"], o["span"],
              o["count"]) for o in top])
+        ref = DRYRUN_REFERENCE.get((rec["arch"], rec["shape"]))
+        if ref is None or rec["chips"] == 1:
+            continue
+        ratio = rec["flops_per_device"] / ref[0]
+        log("dryrun", cell=name.replace(" ", "_"),
+            jax_flops_per_device=f"{ref[0]:.4e}",
+            flops_over_jax=f"{ratio:.4f}", bound=report.FLOP_BOUND,
+            jax_collective_s=ref[1],
+            collective_over_jax=f"{t['collective_s'] / ref[1]:.4f}",
+            collective_bound=report.COLL_BOUND)
+        flops_ok, coll_ok = report.within_reference(
+            rec["flops_per_device"], t["collective_s"], *ref)
+        if not flops_ok:
+            raise AssertionError(f"dryrun {name}: {ratio:.3f} × JAX's FLOPs "
+                                 f"per device (bound {report.FLOP_BOUND})")
+        if not coll_ok:
+            raise AssertionError(
+                f"dryrun {name}: collective term {t['collective_s']:.4f} s "
+                f"against JAX's {ref[1]} s (bound {report.COLL_BOUND}×)")
+        if "aten.view.default" in rec["replicated"]:
+            raise AssertionError(f"dryrun {name}: views placed by the "
+                                 f"counter {rec['replicated']}")
     if "ms_per_step" in TRAIN_RESULT:
         ms = TRAIN_RESULT["ms_per_step"]
         step_s = report.terms(card)["step_s"]

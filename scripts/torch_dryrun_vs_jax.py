@@ -1,0 +1,154 @@
+"""The port's dry-run held against the JAX package's, cell by cell.
+
+Reads the JAX package's artifacts (``artifacts/dryrun/``, made by
+``PYTHONPATH=src python -m repro.launch.dryrun --all --mesh both``) and
+the port's (``artifacts/dryrun_torch/``, made by ``PYTHONPATH=src python
+-m repro_torch.launch.dryrun --all --mesh both``) and prints, for every
+cell both count ``ok``: FLOPs per device of each and their ratio, each
+collective term under the port's H100 model
+(`repro_torch.roofline.report.terms`, one link rule for both; JAX's
+collectives carry no ``span`` and are charged by their group size), the
+ops the port's counter had to replicate, and the bound of each.
+
+A cell misses when the port counts more than ``FLOP_BOUND`` × JAX's FLOPs
+per device, or when its collective term is both over ``COLL_BOUND`` × JAX's
+and over ``COLL_FLOOR_S`` (the bounds of `repro_torch.roofline.report`);
+such numbers are marked with ``!``.  The exit code is 1 when a cell
+misses.
+
+Usage:
+  PYTHONPATH=src python scripts/torch_dryrun_vs_jax.py [--jax DIR]
+      [--torch DIR] [--all] [--roofline]
+``--all`` also lists the cells within both bounds (by default only the
+cells that miss are listed, then a summary).  ``--roofline`` prints
+instead the port's H100 roofline table of each mesh
+(`repro_torch.roofline.report.markdown_table`) with a last column for
+the port / JAX FLOPs per device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+from repro_torch.roofline.report import (COLL_BOUND, COLL_FLOOR_S,
+                                        FLOP_BOUND, markdown_table, terms,
+                                        within_reference)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+DENSE = ("smollm-360m", "qwen2-7b", "command-r-35b", "mistral-large-123b",
+         "llava-next-34b")
+
+
+def as_port_record(rec: dict) -> dict:
+    """A JAX artifact with the port's key names, for `terms`."""
+    out = dict(rec)
+    out["flops_per_device"] = rec["hlo_flops_per_device"]
+    out["bytes_per_device"] = rec["hlo_bytes_per_device"]
+    return out
+
+
+def load(directory: Path) -> dict:
+    recs = {}
+    for p in sorted(directory.glob("*__*__*.json")):
+        rec = json.loads(p.read_text())
+        recs[(rec["arch"], rec["shape"], rec["mesh"])] = rec
+    return recs
+
+
+def compare(port: dict, jax: dict) -> dict:
+    """One cell: the numbers of the table and whether each bound holds."""
+    tp, tj = terms(port), terms(as_port_record(jax))
+    ratio = port["flops_per_device"] / max(jax["hlo_flops_per_device"], 1.0)
+    flops_ok, coll_ok = within_reference(
+        port["flops_per_device"], tp["collective_s"],
+        jax["hlo_flops_per_device"], tj["collective_s"])
+    views = port.get("replicated", {}).get("aten.view.default", 0)
+    return {"port_flops": port["flops_per_device"],
+            "jax_flops": jax["hlo_flops_per_device"], "ratio": ratio,
+            "port_coll_s": tp["collective_s"],
+            "jax_coll_s": tj["collective_s"],
+            "views": views, "replicated": port.get("replicated", {}),
+            "port_bound": tp["bound"], "jax_bound": tj["bound"],
+            "flops_ok": flops_ok, "coll_ok": coll_ok,
+            "views_ok": views == 0 or port["arch"] not in DENSE}
+
+
+def table(ports: dict, jaxes: dict, everything: bool) -> tuple:
+    rows = ["| arch | shape | mesh | port FLOP/dev | JAX FLOP/dev | "
+            "port / JAX | port coll s | JAX coll s | replicated | "
+            "bound port / JAX |",
+            "|---|---|---|---|---|---|---|---|---|---|"]
+    misses, both = [], 0
+    for key in sorted(set(ports) & set(jaxes)):
+        port, jax = ports[key], jaxes[key]
+        if port["status"] != "ok" or jax["status"] != "ok":
+            continue
+        both += 1
+        c = compare(port, jax)
+        ok = c["flops_ok"] and c["coll_ok"] and c["views_ok"]
+        if not ok:
+            misses.append(key)
+        if ok and not everything:
+            continue
+        rep = ", ".join(f"{k.replace('aten.', '').replace('.default', '')}"
+                        f" {n}" for k, n in sorted(c["replicated"].items()))
+        rows.append(
+            f"| {key[0]} | {key[1]} | {key[2]} | {c['port_flops']:.4e} | "
+            f"{c['jax_flops']:.4e} | {c['ratio']:.2f}"
+            f"{'' if c['flops_ok'] else ' !'} | {c['port_coll_s']:.4g}"
+            f"{'' if c['coll_ok'] else ' !'} | {c['jax_coll_s']:.4g} | "
+            f"{rep or '—'}{'' if c['views_ok'] else ' !'} | "
+            f"{c['port_bound']} / {c['jax_bound']} |")
+    return "\n".join(rows), misses, both
+
+
+def roofline(ports: dict, jaxes: dict) -> str:
+    """The port's roofline table of each mesh, with the port / JAX FLOPs
+    per device where JAX counts the cell ``ok``."""
+    def ratio(rec):
+        jax = jaxes.get((rec["arch"], rec["shape"], rec["mesh"]), {})
+        if rec["status"] != "ok" or jax.get("status") != "ok":
+            return "—"
+        return f"{rec['flops_per_device'] / jax['hlo_flops_per_device']:.2f}"
+    out = []
+    for mesh in ("pod", "multipod"):
+        recs = [r for k, r in sorted(ports.items()) if k[2] == mesh]
+        out += [f"{mesh}:", markdown_table(records=recs,
+                                          extra=("port / JAX", ratio))]
+    return "\n\n".join(out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--jax", type=Path, default=ROOT / "artifacts" / "dryrun")
+    ap.add_argument("--torch", type=Path,
+                    default=ROOT / "artifacts" / "dryrun_torch")
+    ap.add_argument("--all", action="store_true",
+                    help="list every cell, not only those that miss")
+    ap.add_argument("--roofline", action="store_true",
+                    help="print the port's roofline table of both meshes")
+    args = ap.parse_args(argv)
+    ports, jaxes = load(args.torch), load(args.jax)
+    if not ports or not jaxes:
+        print(f"no artifacts in {args.torch if not ports else args.jax}",
+              file=sys.stderr)
+        return 2
+    if args.roofline:
+        print(roofline(ports, jaxes))
+        return 0
+    text, misses, both = table(ports, jaxes, args.all)
+    print(text)
+    print(f"\n{both} cells ok in both; {len(misses)} over a bound "
+          f"(FLOPs/dev > {FLOP_BOUND}× JAX's, collective term > "
+          f"{COLL_BOUND}× JAX's and ≥ {COLL_FLOOR_S * 1e3:.0f} ms, or a "
+          f"replicated view in a dense/vlm cell)"
+          + (": " + ", ".join("×".join(k) for k in misses) if misses
+             else ""))
+    return 1 if misses else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,7 +18,9 @@ The record has the JAX record's keys, with these changes:
     allocate (`Analysis.peak_bytes`);
   * ``counted_flops`` / ``counted_bytes`` (JAX: ``xla_cost_flops`` /
     ``xla_cost_bytes``): the same formulas over the ops at their global,
-    unsharded shapes, what one device would do for the whole program;
+    unsharded shapes, what one device would do for the whole program (a
+    body that each rank runs on its own shards, `map_shards`, counts
+    once per shard);
   * ``flops_per_device`` / ``bytes_per_device`` (JAX:
     ``hlo_flops_per_device`` / ``hlo_bytes_per_device``): the counts over
     rank 0's local ops;
@@ -127,12 +129,11 @@ def _dim(mesh, name: str) -> int:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))[name]
 
 
-def build_cell(arch: str, shape_name, mesh, hyper=None, cfg=None):
-    """Returns (fn, args, meta): the cell's step and its arguments as meta
-    DTensors placed on ``mesh``."""
-    cfg, shape = cell_config(arch, shape_name, cfg)
-    model = get_model(cfg)
-    hyper = hyper or TrainHyper(accum_steps=cfg.accum_steps)
+def cell_rules(cfg, shape, mesh, hyper) -> dict:
+    """The logical rules of a cell (``cfg`` and ``shape`` from
+    `cell_config`) on ``mesh``: the arch's rules, with the batch rule
+    fitted, sequence parallelism for a prefill whose heads do not shard,
+    and the split-K window for decode."""
     rules = make_rules(mesh, **dict(cfg.rules_overrides))
     # fitted to what one step computes on: a train step's microbatch.  JAX
     # fits the global batch and pads a microbatch its batch axes do not
@@ -157,7 +158,16 @@ def build_cell(arch: str, shape_name, mesh, hyper=None, cfg=None):
         if window % _dim(mesh, "model") == 0 \
                 and rules.get("kv_heads") is None:
             rules["window"] = "model"
+    return rules
 
+
+def build_cell(arch: str, shape_name, mesh, hyper=None, cfg=None):
+    """Returns (fn, args, meta): the cell's step and its arguments as meta
+    DTensors placed on ``mesh``."""
+    cfg, shape = cell_config(arch, shape_name, cfg)
+    model = get_model(cfg)
+    hyper = hyper or TrainHyper(accum_steps=cfg.accum_steps)
+    rules = cell_rules(cfg, shape, mesh, hyper)
     schema = model.schema()
     inputs = model.input_specs(shape)
     input_pl = batch_shardings(inputs, mesh, rules)

@@ -12,13 +12,18 @@ those sites are the identity.  Layouts follow the JAX package: activations
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel.sharding import logical_constraint as lc
+from ..parallel.sharding import (map_shards, redistribute, shard_dims,
+                                 weight_for)
 from .common import to_dtype
 
 NEG_INF = -1e30
@@ -26,6 +31,21 @@ NEG_INF = -1e30
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
+    """``x @ w`` with ``w`` cast to ``dtype`` and, on a mesh, placed for
+    ``x`` by `weight_for`.  Where that leaves the weight whole on every
+    rank (sequence parallelism), each rank multiplies its own rows as
+    plain tensors: through DTensor the product would flatten a batch and a
+    sequence sharded on two mesh dims into one, which some torch versions
+    cannot place."""
+    w = weight_for(x, cast(w, dtype))
+    if isinstance(w, DTensor) and shard_dims(x, 1) \
+            and all(p == Replicate() for p in w.placements):
+        return map_shards(torch.matmul, (x, w),
+                          (x.placements, w.placements), (x.placements,))
+    return x @ w
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -74,9 +94,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # -------------------------------------------------------------- attention
+def _without_seq(pl) -> list:
+    """Placements ``pl`` with the sequence dim (1) replicated."""
+    return [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in pl]
+
+
+def place_attention(q: DTensor, k: torch.Tensor, v: torch.Tensor):
+    """The einsum path's operands on a mesh, placed so that each rank
+    computes its own share of the logits and nothing is replicated.
+
+    q keeps its placements: its batch, and its query rows (sequence
+    parallelism) or its heads (tensor parallelism).  K/V get the same
+    batch and span the whole key sequence on every rank (gathered when
+    sharded on it; [B, Skv, Hkv, D] is small beside the logits).  Where
+    q's heads are sharded over more ranks than there are kv heads (8 kv
+    heads on a 16-wide model axis), grouping the query heads over their kv
+    head would split a sharded dim unevenly, which DTensor cannot place:
+    K/V are then expanded to one head per query head and each rank keeps
+    its own heads' (the JAX partitioner slices each rank's kv head out of
+    the replicated K/V the same way)."""
+    b, skv, hkv, d = k.shape
+    h = q.shape[2]
+    kv_pl = _without_seq(q.placements)
+    if hkv % math.prod(q.device_mesh.size(i) for i in shard_dims(q, 2)):
+        k, v = (redistribute(t, [Replicate() if isinstance(p, Shard)
+                                 and p.dim in (1, 2) else p
+                                 for p in t.placements])[:, :, :, None]
+                .expand(b, skv, hkv, h // hkv, d).reshape(b, skv, h, d)
+                for t in (k, v))
+    return q, redistribute(k, kv_pl), redistribute(v, kv_pl)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sliding_window: Optional[int] = None,
-              impl: str = "xla") -> torch.Tensor:
+              impl: str = "xla", rules=None) -> torch.Tensor:
     """Scaled-dot-product GQA attention.
 
     q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D].  ``impl`` selects the einsum
@@ -84,6 +136,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor, its plain version on a CPU one) or the kernel's plain version
     ("pallas_interpret"), for train/prefill shapes.  Unlike the JAX
     package's pallas path, the kernel paths keep ``sliding_window``.
+    With ``rules`` and DTensor operands the einsum path places them by
+    `place_attention`; the causal mask is built at global positions, so a
+    rank holding a block of query rows masks them where they sit.
     """
     if impl.startswith("pallas") and q.shape[1] > 1 \
             and q.shape[1] == k.shape[1]:
@@ -95,6 +150,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_plain(q, k, v, causal=causal,
                                sliding_window=sliding_window)
 
+    if rules is None or not isinstance(q, DTensor):
+        return _attend(q, k, v, torch.arange(q.shape[1], device=q.device),
+                       causal, sliding_window)
+    # on a mesh each rank attends its own query rows or heads as plain
+    # tensors, the rows at their global positions
+    q, k, v = place_attention(q, k, v)
+    mesh = q.device_mesh
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
+            for p in q.placements]
+    qpos = DTensor.from_local(torch.arange(q.shape[1], device=q.device),
+                              mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+    return map_shards(
+        functools.partial(_attend, causal=causal,
+                          sliding_window=sliding_window),
+        (q, k, v, qpos), (q.placements, k.placements, v.placements, rows),
+        (q.placements,))
+
+
+def _attend(q, k, v, qpos, causal, sliding_window):
+    """The einsum path on plain tensors; qpos [Sq] are the query rows'
+    positions in the key sequence."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -102,7 +179,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(b, sq, hkv, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * (1.0 / np.sqrt(d))
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = qpos[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -129,8 +206,43 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     GQA is grouped: the cache is never repeated over query heads.  Both
     products read the cache in its storage dtype (an fp32 copy of the
     whole cache per call would cost more than the attention itself); the
-    logits are taken to fp32 for the mask and the softmax.
+    logits are taken to fp32 for the mask and the softmax.  With
+    ``rules`` and a DTensor cache, each rank attends its own shards of the
+    cache (`_decode_split_k`).
     """
+    if rules is not None and isinstance(k_cache, DTensor):
+        return lc(_decode_split_k(q, k_cache, v_cache, key_pos, qpos,
+                                  sliding_window),
+                  ("batch", None, "heads", None), rules)
+    return _decode(q, k_cache, v_cache, key_pos, qpos, sliding_window)
+
+
+def _decode_split_k(q, k_cache, v_cache, key_pos, qpos, sliding_window):
+    """`decode_attention` on a mesh.  q follows the cache's batch and
+    kv-head placements; where the window is sharded (split-K), a rank
+    scores every query head against its own block of slots, and the
+    softmax's max and sum and the weighted values are reduced over the
+    ranks holding the other blocks."""
+    mesh = k_cache.device_mesh
+    q = redistribute(q, _without_seq(k_cache.placements))
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in q.placements]
+    if not isinstance(qpos, DTensor):
+        qpos = DTensor.from_local(qpos, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    groups = [mesh.get_group(i) for i in shard_dims(k_cache, 1)]
+    return map_shards(
+        functools.partial(_decode, sliding_window=sliding_window,
+                          groups=groups),
+        (q, k_cache, v_cache, key_pos, qpos),
+        (q.placements, k_cache.placements, v_cache.placements,
+         key_pos.placements, rows), (q.placements,))
+
+
+def _decode(q, k_cache, v_cache, key_pos, qpos, sliding_window, groups=()):
+    """`decode_attention` on plain tensors; with ``groups`` the cache is
+    one block of the window, and the other blocks are on the ranks of
+    those process groups."""
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     qg = q.reshape(b, hkv, h // hkv, d).to(k_cache.dtype)
@@ -140,11 +252,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if sliding_window is not None:
         mask &= key_pos > qpos[:, None] - sliding_window
     logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    if groups:
+        m = _all_reduce(logits.amax(dim=-1, keepdim=True), "max", groups)
+        e = torch.exp(logits - m)
+        probs = e / _all_reduce(e.sum(dim=-1, keepdim=True), "sum", groups)
+    else:
+        probs = torch.softmax(logits, dim=-1)
     # probs in the cache's dtype: the AV product reads the cache as stored
-    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
-    return lc(out.reshape(b, 1, h, d).to(q.dtype),
-              ("batch", None, "heads", None), rules)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
+    if groups:
+        out = _all_reduce(out.float(), "sum", groups)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    for g in groups:
+        x = funcol.all_reduce(x, op, g)
+    return x
 
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -156,36 +280,94 @@ def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
     pos: [B].  Unlike the JAX package, which returns new arrays, the port
     writes the three tensors in place (they may be views into a cache
     stacked on layers) and returns them."""
-    b, w = k_cache.shape[:2]
-    slot = pos.long() % w
-    bidx = torch.arange(b, device=k_cache.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    key_pos[bidx, slot] = pos.to(key_pos.dtype)
+    slot = pos.long() % k_cache.shape[1]
+    for cache, val in ((k_cache, k[:, 0]), (v_cache, v[:, 0]),
+                       (key_pos, pos)):
+        _ring_write(cache, slot, val)
     return k_cache, v_cache, key_pos
 
 
-def qkv(params, y: torch.Tensor, cfg, positions: torch.Tensor):
+def _ring_write(cache: torch.Tensor, slot: torch.Tensor,
+                val: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = val[b]`` for every row b, in place.  On a
+    DTensor cache each rank writes the rows of its own batch shard whose
+    slot falls in its own block of the window (split-K decode): DTensor
+    has no strategy for this write that keeps the cache's placements."""
+    if not isinstance(cache, DTensor):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, slot] = val.to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+
+    def on(dim):
+        return [Shard(0) if isinstance(p, Shard) and p.dim == dim
+                else Replicate() for p in pl]
+    val_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+              else Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2
+              else Replicate() for p in pl]
+    rep = [Replicate()] * mesh.ndim
+    wpos, slot, val = (t if isinstance(t, DTensor) else
+                       DTensor.from_local(t, mesh, rep, run_check=False)
+                       for t in (torch.arange(cache.shape[1],
+                                              device=cache.device),
+                                 slot, val))
+    map_shards(_write_rows, (cache, slot, wpos, val),
+               (pl, on(0), on(1), val_pl), ())
+
+
+def _write_rows(cache, slot, wpos, val):
+    """`_ring_write` on one rank's shards: wpos holds the window positions
+    of the rank's block.  A row whose slot lies in another block writes
+    back what it holds (shapes that do not depend on the data)."""
+    b, w = cache.shape[:2]
+    local = slot - wpos[0]
+    inside = ((local >= 0) & (local < w)).view((b,) + (1,) * (val.ndim - 1))
+    bidx, idx = torch.arange(b, device=cache.device), local.clamp(0, w - 1)
+    cache[bidx, idx] = torch.where(inside, val.to(cache.dtype),
+                                   cache[bidx, idx])
+
+
+def qkv(params, y: torch.Tensor, cfg, positions: torch.Tensor, rules=None):
     """Projections of the normed input y [B, S, d] to rotated q
     [B, S, H, D], rotated k and v [B, S, Hkv, D]; positions [B|1, S]."""
     dt = to_dtype(cfg.compute_dtype)
     hd = cfg.head_dim_
     b, s, _ = y.shape
 
-    def proj(name, heads):
-        out = (y @ cast(params[name], dt)).view(b, s, heads, hd)
+    def proj(name, heads, axis):
+        # placed before the view: a projection DTensor leaves sharded on a
+        # [H·D] it cannot split into heads would have to be gathered
+        out = lc(linear(y, params[name], dt), ("batch", "seq", axis), rules)
+        out = out.view(b, s, heads, hd)
         if cfg.qkv_bias and f"{name}_b" in params:
             out = out + cast(params[f"{name}_b"], dt).view(heads, hd)
         return out
 
-    q = apply_rope(proj("wq", cfg.n_heads), positions, cfg.rope_theta)
-    k = apply_rope(proj("wk", cfg.n_kv_heads), positions, cfg.rope_theta)
-    return q, k, proj("wv", cfg.n_kv_heads)
+    q = apply_rope(proj("wq", cfg.n_heads, "heads"), positions,
+                   cfg.rope_theta)
+    k = apply_rope(proj("wk", cfg.n_kv_heads, "kv_heads"), positions,
+                   cfg.rope_theta)
+    return q, k, proj("wv", cfg.n_kv_heads, "kv_heads")
+
+
+def gathered(x: torch.Tensor, rules=None) -> torch.Tensor:
+    """A projection [B, S, F] computed sharded on the model axis as an FFN
+    activation is, then gathered whole on every rank, for a split or a
+    view its shards do not line up with: each rank computes its slice of
+    the product, and the gradient comes back sharded the same way, so the
+    weight's gradient is a slice on each rank too (gathered at once,
+    DTensor computes the whole product and its weight gradient on every
+    rank)."""
+    return lc(lc(x, ("batch", "seq", "act_mlp"), rules),
+              ("batch", "seq", None), rules)
 
 
 def attn_out(params, attn: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     """Output projection of attention heads [B, S, H, D] → [B, S, d]."""
-    out = attn.flatten(2) @ cast(params["wo"], to_dtype(cfg.compute_dtype))
+    # placed as the heads are, so that the gradient reaches the flatten in
+    # a layout it can split back into heads
+    flat = lc(attn.flatten(2), ("batch", "seq", "heads"), rules)
+    out = linear(flat, params["wo"], to_dtype(cfg.compute_dtype))
     return lc(out, ("batch", "seq", "act_embed"), rules)
 
 
@@ -202,12 +384,12 @@ def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     """
     y = rms_norm(x, params["ln"], cfg.norm_eps) if norm else x
     q, k, v = qkv(params, y, cfg,
-                  positions if cache is None else positions[:, None])
+                  positions if cache is None else positions[:, None], rules)
     q = lc(q, ("batch", "seq", "heads", None), rules)
     k = lc(k, ("batch", "seq", "kv_heads", None), rules)
     if cache is None:
         attn = attention(q, k, v, causal=True, sliding_window=sliding_window,
-                         impl=cfg.attn_impl)
+                         impl=cfg.attn_impl, rules=rules)
         return attn_out(params, attn, cfg, rules), None
     k_cache, v_cache, key_pos = cache_write(*cache, k, v, positions)
     dt = to_dtype(cfg.compute_dtype)
@@ -222,10 +404,10 @@ def swiglu(params, x: torch.Tensor, cfg, rules=None,
            pre_normed: bool = False) -> torch.Tensor:
     dt = to_dtype(cfg.compute_dtype)
     y = x if pre_normed else rms_norm(x, params["ln"], cfg.norm_eps)
-    h = F.silu(y @ cast(params["w_gate"], dt)) * (y @ cast(params["w_up"],
-                                                          dt))
+    h = F.silu(linear(y, params["w_gate"], dt)) \
+        * linear(y, params["w_up"], dt)
     h = lc(h, ("batch", "seq", "act_mlp"), rules)
-    return lc(h @ cast(params["w_down"], dt), ("batch", "seq", "act_embed"),
+    return lc(linear(h, params["w_down"], dt), ("batch", "seq", "act_embed"),
               rules)
 
 
@@ -234,10 +416,14 @@ def gelu_mlp(params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     default of `jax.nn.gelu`), down-projection with bias."""
     dt = to_dtype(cfg.compute_dtype)
     y = layer_norm(x, params["ln"], params["ln_b"], cfg.norm_eps)
-    h = F.gelu(y @ cast(params["w_up"], dt) + cast(params["b_up"], dt),
+    h = F.gelu(linear(y, params["w_up"], dt) + cast(params["b_up"], dt),
                approximate="tanh")
     h = lc(h, ("batch", "seq", "act_mlp"), rules)
-    return h @ cast(params["w_down"], dt) + cast(params["b_down"], dt)
+    # reduced here, as `swiglu`'s output is: left a partial sum, it would
+    # run on through the residual and the next norm into a product that
+    # DTensor then computes whole on every rank
+    return lc(linear(h, params["w_down"], dt), ("batch", "seq", "act_embed"),
+              rules) + cast(params["b_down"], dt)
 
 
 # -------------------------------------------------------------------- MoE
@@ -324,14 +510,53 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
 
 # -------------------------------------------------------------- embeddings
 def embed(params, tokens: torch.Tensor, cfg, rules=None) -> torch.Tensor:
+    table = params["embedding"]
     # gather, then cast: the same values as casting the table first
-    x = cast(params["embedding"][tokens], to_dtype(cfg.compute_dtype))
-    return lc(x, ("batch", "seq", "act_embed"), rules)
+    x = _embed_shards(table, tokens) if isinstance(table, DTensor) \
+        else table[tokens]
+    return lc(cast(x, to_dtype(cfg.compute_dtype)),
+              ("batch", "seq", "act_embed"), rules)
+
+
+def _embed_shards(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup on a mesh: each rank looks its tokens up in its own
+    block of the vocab (zero rows for the others' tokens) and the blocks
+    are summed; the table is gathered where its embed dim is sharded
+    (FSDP).  DTensor's own strategies for the lookup and its backward
+    fail at these placements in some torch versions."""
+    mesh = table.device_mesh
+    vocab = shard_dims(table, 0)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_pl = [Replicate() if i in vocab else p
+              for i, p in enumerate(tokens.placements)]
+    tab_pl = [Shard(0) if i in vocab else Replicate()
+              for i in range(mesh.ndim)]
+    rows = DTensor.from_local(torch.arange(table.shape[0],
+                                           device=table.device),
+                              mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+    # one block per rank on a new leading dim, summed over it by DTensor
+    out_pl = [Shard(0) if i in vocab else
+              Shard(p.dim + 1) if isinstance(p, Shard) else p
+              for i, p in enumerate(tok_pl)]
+    return map_shards(_lookup, (table, tokens, rows),
+                      (tab_pl, tok_pl, tab_pl), (out_pl,)).sum(dim=0)
+
+
+def _lookup(table, tokens, rows):
+    """`_embed_shards` on one rank: rows holds the vocab ids of its block;
+    returns [1, *tokens.shape, d]."""
+    local = tokens.long() - rows[0]
+    inside = ((local >= 0) & (local < table.shape[0]))[..., None]
+    x = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(inside, x, torch.zeros_like(x))[None]
 
 
 def unembed(params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
     w = params.get("unembedding", params["embedding"])
-    return lc(x @ cast(w, to_dtype(cfg.compute_dtype)).T,
+    return lc(linear(x, w.T, to_dtype(cfg.compute_dtype)),
               ("batch", "seq", "act_vocab"), rules)
 
 
@@ -340,5 +565,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     fp32 logsumexp over the whole (padded) vocab, no label mask."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None]).squeeze(-1)
-    return (logz - gold).mean()
+    gold = logits.gather(-1, labels.long()[..., None])
+    if isinstance(gold, DTensor):
+        # gathered from a sharded vocab it is a masked partial sum: reduced
+        # before the squeeze, whose output DTensor's mask no longer fits
+        gold = redistribute(gold, [Replicate() if p.is_partial() else p
+                                   for p in gold.placements])
+    return (logz - gold.squeeze(-1)).mean()

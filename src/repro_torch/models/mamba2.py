@@ -22,6 +22,7 @@ import torch.nn.functional as F
 # (xh [B,S,H,Pd], post-softplus dt, a_log, b/c [B,S,N], d_skip, chunk, s0)
 from repro_torch.kernels.mamba2_scan import ssd_scan as ssd_chunked
 
+from ..parallel.sharding import map_shards_by_axes
 from ..parallel.sharding import logical_constraint as lc
 from . import layers as L
 from .common import (P, attn_cache_spec, decode_specs, decode_window,
@@ -141,7 +142,8 @@ def mamba2_block(params, x_in, cfg, rules=None,
     inner, nheads, _ = _dims(cfg)
     n = s_cfg.state_dim
     y = L.rms_norm(x_in, params["ln"], cfg.norm_eps)
-    proj = y @ L.cast(params["in_proj"], dt_c)
+    # the five pieces do not line up with the model axis' shards
+    proj = L.gathered(L.linear(y, params["in_proj"], dt_c), rules)
     z, xs, b, c, dt_raw = _split_proj(cfg, proj)
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
 
@@ -162,8 +164,14 @@ def mamba2_block(params, x_in, cfg, rules=None,
         xs, b, c = torch.split(conv_out, [inner, n, n], dim=-1)
         xh = xs.reshape(*xs.shape[:2], nheads, s_cfg.head_dim)
         xh = lc(xh, ("batch", "seq", "heads", None), rules)
-        yh, _ = ssd_chunked(xh, dt, params["a_log"], b, c, params["d_skip"],
-                            chunk=s_cfg.chunk)
+        # the scan runs on each rank's batch and heads, the whole sequence
+        # in hand
+        bsh, bs = ("batch", None, "heads"), ("batch", None, None)
+        yh, _ = map_shards_by_axes(
+            lambda *t: ssd_chunked(*t, chunk=s_cfg.chunk),
+            (xh, dt, params["a_log"], b, c, params["d_skip"]),
+            (bsh + (None,), bsh, ("heads",), bs, bs, ("heads",)),
+            (bsh + (None,), ("batch", "heads", None, None)), rules)
     else:
         conv_buf, s0 = state
         hist = torch.cat([conv_buf, conv_in.to(conv_buf.dtype)], dim=1)

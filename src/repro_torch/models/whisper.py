@@ -88,12 +88,15 @@ def schema(cfg) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------- attention
-def _proj(params, prefix, name, y, heads, hd, dt) -> torch.Tensor:
+def _proj(params, prefix, name, y, heads, hd, dt, rules=None,
+          axis: str = "kv_heads") -> torch.Tensor:
     """y [B, S, d] → heads [B, S, heads, hd], a contiguous tensor (the
     flash kernel's TMA reads it as it is), plus the bias where the tree
-    has one (``wk`` has none)."""
+    has one (``wk`` has none).  On a mesh the projection is placed on its
+    logical ``axis`` before the view, as in `layers.qkv`."""
     b, s, _ = y.shape
-    out = (y @ L.cast(params[f"{prefix}{name}"], dt)).view(b, s, heads, hd)
+    out = lc(L.linear(y, params[f"{prefix}{name}"], dt),
+             ("batch", "seq", axis), rules).view(b, s, heads, hd)
     bkey = f"{prefix}{name}_b"
     if bkey in params:
         out = out + L.cast(params[bkey], dt).view(heads, hd)
@@ -114,18 +117,19 @@ def _attn(params, prefix, x, kv_src, cfg, *, causal, rules=None,
     hd = cfg.head_dim_
     y = L.layer_norm(x, params[f"{prefix}ln"], params[f"{prefix}ln_b"],
                      cfg.norm_eps)
-    q = _proj(params, prefix, "wq", y, cfg.n_heads, hd, dt)
+    q = _proj(params, prefix, "wq", y, cfg.n_heads, hd, dt, rules, "heads")
     q = lc(q, ("batch", "seq", "heads", None), rules)
 
     new_cache = None
     if static_kv is not None:                    # decode cross-attn
         k, v = static_kv
-        attn = L.attention(q, L.cast(k, dt), L.cast(v, dt), causal=False)
+        attn = L.attention(q, L.cast(k, dt), L.cast(v, dt), causal=False,
+                           rules=rules)
     elif cache is not None:                      # decode self-attn
         # the JAX package norms kv_src again; in the decoder it is x, so
         # its keys come from y
-        k = _proj(params, prefix, "wk", y, cfg.n_kv_heads, hd, dt)
-        v = _proj(params, prefix, "wv", y, cfg.n_kv_heads, hd, dt)
+        k = _proj(params, prefix, "wk", y, cfg.n_kv_heads, hd, dt, rules)
+        v = _proj(params, prefix, "wv", y, cfg.n_kv_heads, hd, dt, rules)
         new_cache = L.cache_write(*cache, k, v, positions)
         k_c, v_c, key_pos = new_cache
         attn = L.decode_attention(q, L.cast(k_c, dt), L.cast(v_c, dt),
@@ -134,12 +138,14 @@ def _attn(params, prefix, x, kv_src, cfg, *, causal, rules=None,
         # self-attn keys come from the normed input; cross-attn keys come
         # from the (already final-normed) encoder output
         yk = y if kv_src is x else kv_src
-        k = _proj(params, prefix, "wk", yk, cfg.n_kv_heads, hd, dt)
-        v = _proj(params, prefix, "wv", yk, cfg.n_kv_heads, hd, dt)
+        k = _proj(params, prefix, "wk", yk, cfg.n_kv_heads, hd, dt, rules)
+        v = _proj(params, prefix, "wv", yk, cfg.n_kv_heads, hd, dt, rules)
         k = lc(k, ("batch", "seq", "kv_heads", None), rules)
-        attn = L.attention(q, k, v, causal=causal, impl=cfg.attn_impl)
+        attn = L.attention(q, k, v, causal=causal, impl=cfg.attn_impl,
+                           rules=rules)
 
-    out = attn.flatten(2) @ L.cast(params[f"{prefix}wo"], dt) \
+    flat = lc(attn.flatten(2), ("batch", "seq", "heads"), rules)
+    out = L.linear(flat, params[f"{prefix}wo"], dt) \
         + L.cast(params[f"{prefix}wo_b"], dt)
     return lc(out, ("batch", "seq", "act_embed"), rules), new_cache
 
@@ -252,8 +258,10 @@ def make_cross_kv(params, enc_out, cfg,
     hd = cfg.head_dim_
     ks, vs = [], []
     for p in layer_views(params["decoder"]):
-        ks.append(_proj(p, "cross_", "wk", enc_out, cfg.n_kv_heads, hd, dt))
-        vs.append(_proj(p, "cross_", "wv", enc_out, cfg.n_kv_heads, hd, dt))
+        ks.append(_proj(p, "cross_", "wk", enc_out, cfg.n_kv_heads, hd, dt,
+                        rules))
+        vs.append(_proj(p, "cross_", "wv", enc_out, cfg.n_kv_heads, hd, dt,
+                        rules))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import map_shards_by_axes
 from ..parallel.sharding import logical_constraint as lc
 from . import layers as L
 from .common import (P, decode_specs, group_views, layer_views,
@@ -196,16 +197,29 @@ def mlstm_block(params, x, cfg, rules=None, state=None):
     y = L.rms_norm(x, params["ln"], cfg.norm_eps)
     b, s, _ = y.shape
 
-    q = y @ L.cast(params["wq"], dt)
-    k = y @ L.cast(params["wk"], dt)
-    v = y @ L.cast(params["wv"], dt)
-    gates = y.float() @ params["wif"].float() + params["b_if"].float()
+    def proj(name):
+        # the 4 heads cannot shard a 16-wide model axis: computed on slices
+        # of the weight, then gathered before the view
+        w = lc(params[name], ("embed", "act_mlp"), rules)
+        return L.gathered(L.linear(y, w, dt), rules)
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    gates = L.linear(y.float(), params["wif"], torch.float32) \
+        + params["b_if"].float()
     ig, fg = gates[..., :h], gates[..., h:]
 
     if state is None:
         qh = lc(q.view(b, s, h, dkh), ("batch", "seq", "heads", None), rules)
-        hh, _ = mlstm_chunked(qh, k.view(b, s, h, dkh),
-                              v.view(b, s, h, dvh), ig, fg, cfg.xlstm.chunk)
+        # the chunk recurrence runs on each rank's shards, the whole
+        # sequence in hand
+        seq4, seq3, st4 = (("batch", None, "heads", None),
+                           ("batch", None, "heads"),
+                           ("batch", "heads", None, None))
+        hh, _ = map_shards_by_axes(
+            lambda *t: mlstm_chunked(*t, cfg.xlstm.chunk),
+            (qh, k.view(b, s, h, dkh), v.view(b, s, h, dvh), ig, fg),
+            (seq4, seq4, seq4, seq3, seq3),
+            (seq4, st4, st4[:3], st4[:2]), rules)
         new_state = None
     else:
         hh, new_state = mlstm_step(state, q[:, 0].view(b, h, dkh),
@@ -213,29 +227,59 @@ def mlstm_block(params, x, cfg, rules=None, state=None):
                                    v[:, 0].view(b, h, dvh),
                                    ig[:, 0], fg[:, 0])
         hh = hh[:, None]
-    hv = hh.reshape(b, s, dv).to(dt)
-    g = F.silu(y @ L.cast(params["wg"], dt))
-    out = (hv * g) @ L.cast(params["wo"], dt)
+    # merged whole, and its gradient split into heads whole (the middle
+    # constraint): the 4 heads cannot split a 16-wide model axis
+    hv = lc(lc(lc(hh, ("batch", "seq", "heads", None), rules)
+               .reshape(b, s, dv), ("batch", "seq", None), rules),
+            ("batch", "seq", "act_mlp"), rules).to(dt)
+    g = F.silu(L.linear(y, params["wg"], dt))
+    out = L.linear(hv * g, params["wo"], dt)
     return lc(out, ("batch", "seq", "act_embed"), rules), new_state
 
 
 # ------------------------------------------------------------------- sLSTM
-def slstm_scan(params, y, cfg, state=None):
+def slstm_scan(params, y, cfg, state=None, rules=None):
     """y: [B,S,d] (already normed).  Returns (h [B,S,d], state'), fp32;
-    state = (c, n, m, h_prev), each [B,H,dh]."""
+    state = (c, n, m, h_prev), each [B,H,dh].
+
+    On a mesh, a call of one step (decode, or a prefill of one token) goes
+    through DTensor with the recurrent weight sliced on its gate dim over
+    the model axis, so the model ranks split the recurrent product; per
+    shard each of them would compute it whole for its batch rows (the
+    xlstm decode cell of `tests/test_torch_dryrun_sharded.py`: 1.28 × the
+    JAX package's FLOPs per device, against 1.00 × through DTensor).  A
+    call of many steps runs the time loop on each rank's shards
+    (`map_shards_by_axes`): through DTensor every step would gather what
+    it slices.  Both are held to the unsharded loop in
+    `tests/test_torch_sharded_values.py`."""
     b, s, d = y.shape
     h = cfg.n_heads
-    dh = d // h
-    wx = y.float() @ params["w_zifo"].float() \
+    wx = L.linear(y.float(), params["w_zifo"], torch.float32) \
         + params["b_zifo"].float()                        # [B,S,4d]
-    wx = wx.view(b, s, h, 4 * dh)
-    r = params["r_zifo"].float()                          # [H, dh, 4dh]
+    wx = L.gathered(wx, rules).view(b, s, h, 4 * d // h)
+    if s == 1:
+        # the 4 heads cannot shard the model axis: r_zifo's gate dim does
+        return _slstm_loop(lc(params["r_zifo"], ("heads", None, "act_mlp"),
+                              rules), wx, *(state or ()))
+    st = ("batch", "heads", None)
+    state = tuple(state or (None,) * 4)
+    return map_shards_by_axes(
+        _slstm_loop, (params["r_zifo"], wx) + state,
+        (("heads", None, None), ("batch", None, "heads", None)) + (st,) * 4,
+        (("batch", None, "heads"),) + (st,) * 4, rules)
 
-    if state is None:
+
+def _slstm_loop(r, wx, c=None, n=None, m=None, h_prev=None):
+    """The sLSTM recurrence over wx [B,S,H,4dh] with the recurrent
+    weights r [H, dh, 4dh]; the state (c, n, m, h_prev) or a fresh one."""
+    b, s, h, dh4 = wx.shape
+    dh = dh4 // 4
+    r = r.float()
+    if c is None:
         zeros = wx.new_zeros((b, h, dh))
-        state = (zeros, zeros + 1e-6, wx.new_full((b, h, dh), -1e30),
-                 zeros)
-    c, n, m, h_prev = (t.float() for t in state)
+        c, n, m, h_prev = (zeros, zeros + 1e-6,
+                           wx.new_full((b, h, dh), -1e30), zeros)
+    c, n, m, h_prev = (t.float() for t in (c, n, m, h_prev))
     hs = []
     for t in range(s):
         g = wx[:, t] + torch.einsum("bhd,hdg->bhg", h_prev, r)
@@ -249,7 +293,7 @@ def slstm_scan(params, y, cfg, state=None):
         h_prev = torch.sigmoid(orr) * c / n.clamp_min(1e-6)
         m = m_new
         hs.append(h_prev)
-    return torch.stack(hs, dim=1).reshape(b, s, d), (c, n, m, h_prev)
+    return torch.stack(hs, dim=1).reshape(b, s, h * dh), (c, n, m, h_prev)
 
 
 def slstm_block(params, x, cfg, rules=None, state=None):
@@ -257,8 +301,12 @@ def slstm_block(params, x, cfg, rules=None, state=None):
     Returns (x', new_state)."""
     dt = to_dtype(cfg.compute_dtype)
     y = L.rms_norm(x, params["ln"], cfg.norm_eps)
-    hs, new_state = slstm_scan(params, y, cfg, state=state)
-    out = lc(hs.to(dt) @ L.cast(params["wo"], dt),
+    hs, new_state = slstm_scan(params, y, cfg, state=state, rules=rules)
+    hs = lc(hs, ("batch", "seq", "act_embed"), rules)
+    # wo's output dim is not sharded by the rules ("embed2"): computed on
+    # slices of it and gathered, as the gate projection is
+    wo = lc(params["wo"], ("embed", "act_mlp"), rules)
+    out = lc(L.gathered(L.linear(hs.to(dt), wo, dt), rules),
              ("batch", "seq", "act_embed"), rules)
     x = x + out
     x = x + L.swiglu({**params, "ln": params["ln2"]}, x, cfg, rules=rules)

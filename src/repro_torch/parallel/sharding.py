@@ -31,11 +31,13 @@ multi-pod mesh adds a pure-DP "pod" axis.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..models.common import P, init_params, to_dtype  # noqa: F401
 
@@ -140,12 +142,164 @@ def abstract_params(schema: Any, param_dtype: str) -> Any:
                               device="meta"), schema)
 
 
+def shard_dims(x: DTensor, tdim: int) -> list:
+    """The mesh dims that shard tensor dim ``tdim`` of ``x``."""
+    tdim %= x.ndim
+    return [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == tdim]
+
+
+def redistribute(x: torch.Tensor, pl) -> torch.Tensor:
+    """``x`` with placements ``pl`` (one per mesh dim); ``x`` itself when
+    it is not a DTensor or already placed so."""
+    if not isinstance(x, DTensor) or tuple(x.placements) == tuple(pl):
+        return x
+    return x.redistribute(x.device_mesh, tuple(pl))
+
+
+def weight_for(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The weight ``w`` of ``x @ w``.  Under sequence parallelism (a dim
+    of ``x`` between the batch and the last is sharded) it is gathered
+    over every mesh dim that shards the rows of ``x``, as the JAX
+    partitioner gathers FSDP and tensor-parallel weights there: DTensor
+    would keep the weight sharded and move the activations, which are far
+    larger.  Otherwise the choice is left to DTensor, which moves the
+    smaller side (the tokens of a decode step, the weight shards of a
+    batch-sharded step).  ``w`` itself when either is not a DTensor."""
+    if not isinstance(x, DTensor) or not isinstance(w, DTensor):
+        return w
+    last = x.ndim - 1
+    rows = [isinstance(p, Shard) and p.dim < last for p in x.placements]
+    if not any(isinstance(p, Shard) and 0 < p.dim < last
+               for p in x.placements):
+        return w
+    return redistribute(w, [Replicate() if r else wp
+                            for r, wp in zip(rows, w.placements)])
+
+
+def whole_on(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with its dim ``dim`` whole on every rank (replicated over the
+    mesh dims that shard it; its other placements kept)."""
+    if not isinstance(x, DTensor):
+        return x
+    split = shard_dims(x, dim)
+    return redistribute(x, [Replicate() if i in split else p
+                            for i, p in enumerate(x.placements)])
+
+
+def last_row(x: torch.Tensor) -> torch.Tensor:
+    """``x[:, -1]``.  Where a DTensor's dim 1 is sharded, DTensor would
+    gather all of ``x`` to take one row; here each rank sums its rows
+    masked to the last (a partial sum that only the rank holding it adds
+    to), so one [B, ...] row is reduced instead."""
+    if not isinstance(x, DTensor) or not shard_dims(x, 1):
+        return x[:, -1]
+    onehot = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+    onehot[-1] = 1
+    return (x * onehot.view((-1,) + (1,) * (x.ndim - 2))).sum(dim=1)
+
+
+_SHARES = [1]
+
+
+def shard_share() -> int:
+    """The number of shards the work running now is split into: 1
+    outside `map_shards`; inside, the product of the sizes of the mesh
+    dims that shard its operands (the dry-run's counter scales a plain
+    op's cost by it to get the op's global cost)."""
+    return _SHARES[-1]
+
+
+def map_shards(fn, args, in_pl, out_pl):
+    """``fn(*args)`` run on each rank's shards as plain tensors, for work
+    that is independent along every sharded dim (a recurrence over time
+    per sequence and head, attention per query block and head):
+    dispatched op by op through DTensor, each step of such a loop would
+    gather what it slices, and each op would search DTensor's strategies.
+
+    ``args[i]`` is redistributed to the placements ``in_pl[i]`` (None:
+    passed as it is) and handed to ``fn`` as its local shard.  The output
+    tensors (a tensor or a tuple, nested or not) come back as DTensors
+    placed by ``out_pl``, one entry per output tensor in flattened order.
+    The gradient of an input replicated over a mesh dim that shards an
+    output is a partial sum over it.  With no DTensor among ``args``, this
+    is ``fn(*args)``."""
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+    split = {i for pl in out_pl for i, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    share = math.prod(mesh.size(i) for i in split | {
+        i for pl in in_pl if pl is not None for i, p in enumerate(pl)
+        if isinstance(p, Shard)})
+
+    def local(a, pl):
+        if pl is None or not isinstance(a, DTensor):
+            return a
+        grad_pl = [Partial() if i in split and isinstance(p, Replicate)
+                   else p for i, p in enumerate(pl)]
+        return redistribute(a, pl).to_local(grad_placements=grad_pl)
+
+    _SHARES.append(share)
+    try:
+        leaves, spec = tree_flatten(fn(*(local(a, pl) for a, pl
+                                         in zip(args, in_pl))))
+    finally:
+        _SHARES.pop()
+    pls = iter(out_pl)
+    return tree_unflatten(
+        [DTensor.from_local(t, mesh, tuple(next(pls)), run_check=False)
+         if isinstance(t, torch.Tensor) else t for t in leaves], spec)
+
+
+def map_shards_by_axes(fn, args, in_axes, out_axes, rules):
+    """`map_shards` with placements given as logical axes (None: an
+    argument passed as it is); give the sequence dim None, so that each
+    rank holds the whole of it.  Without rules this is ``fn(*args)``."""
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if rules is None or lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+
+    def pl(axes):
+        return None if axes is None else placements(spec_for(axes, rules),
+                                                    mesh)
+    return map_shards(fn, args, [pl(a) for a in in_axes],
+                     [pl(a) for a in out_axes])
+
+
 def logical_constraint(x: torch.Tensor, axes: Axes,
                        rules: Optional[Dict[str, Any]]) -> torch.Tensor:
-    """Redistribute a DTensor to the placements of its logical ``axes``;
-    ``x`` itself without rules or when it is not a DTensor (JAX's version
-    returns ``x`` outside a mesh)."""
+    """Redistribute a DTensor to the placements of its logical ``axes``,
+    its gradient too (`_Constrain`); ``x`` itself without rules or when it
+    is not a DTensor (JAX's version returns ``x`` outside a mesh)."""
     if rules is None or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh,
-                          placements(spec_for(axes, rules), x.device_mesh))
+    return _Constrain.apply(x, placements(spec_for(axes, rules),
+                                          x.device_mesh))
+
+
+class _Constrain(torch.autograd.Function):
+    """A redistribution whose gradient is held to the same placements, as
+    JAX's sharding constraint holds the cotangent to its sharding.
+    DTensor's own `redistribute` leaves the gradient as the op before it
+    made it: a partial sum, which the next product may then keep partial
+    by computing whole on every rank instead of reducing it first."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return redistribute(x, pl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = redistribute(grad, ctx.pl)
+        if isinstance(grad, DTensor) and \
+                not grad.to_local().is_contiguous():
+            # a gathered or re-split shard can come back strided, and the
+            # view in the next op's backward needs it dense
+            grad = DTensor.from_local(grad.to_local().contiguous(),
+                                      grad.device_mesh, grad.placements,
+                                      shape=grad.shape, stride=grad.stride())
+        return grad, None

@@ -37,10 +37,13 @@ on the local copies, its outputs replicated.  An op that writes an
 operand copies the result back into it.  The collectives this costs are counted,
 and `Analysis.replicated` names each such op with its count.  A gather
 over a sharded dim is run without DTensor's masked partial, whose mask
-cannot be built on meta tensors (`_sharded_gather`), and a ring-cache
-write into a batch-sharded cache is run shard by shard
-(`_row_index_put`), where DTensor would replicate the cache.  The modes
-are for meta tensors: values are never looked at.
+cannot be built on meta tensors (`_sharded_gather`).  The modes are for
+meta tensors: values are never looked at.
+
+The global counts (`Analysis.global_flops`/``global_bytes``) take each
+DTensor op at its global shape, and each plain op of a
+`repro_torch.parallel.sharding.map_shards` body (work each rank runs on
+its own shards) times the number of shards it is split into.
 
 The mode also keeps the live bytes of the storages the local ops create;
 their peak is `Analysis.peak_bytes` (activations, gradients and
@@ -61,6 +64,10 @@ from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map_only
 from torch.utils.flop_counter import flop_registry
+
+# the models first: the sharding module imports them, and they import it
+from .. import models  # noqa: F401
+from ..parallel.sharding import shard_share
 
 aten = torch.ops.aten
 
@@ -95,8 +102,10 @@ class Analysis:
     collective_ops: List[dict] = field(default_factory=list)
     peak_bytes: int = 0
     replicated: Dict[str, int] = field(default_factory=dict)
-    global_flops: float = 0.0      # the same counts over the DTensor ops at
-    global_bytes: float = 0.0      # their global shapes (one device, whole)
+    # the same counts for the whole program on one device: the DTensor ops
+    # at their global shapes, a `map_shards` body's ops times its shards
+    global_flops: float = 0.0
+    global_bytes: float = 0.0
 
 
 def _nbytes(x) -> int:
@@ -213,46 +222,6 @@ def _on_replicas(func, args, kwargs):
                          lambda t: DTensor.from_local(t, mesh, rep), out)
 
 
-def _row_index_put(self, indices, values, accumulate=False):
-    """``aten.index_put_`` that writes one row per batch element into a
-    tensor sharded on its batch dim (the ring-cache write: indices
-    (arange(B), slot), values [B, ...]), run where each row lives, as an
-    SPMD partitioner runs it: every rank writes its own batch shard's rows,
-    and where the indexed dims after the first are sharded (the cache's
-    window under KV-parallel decode) a rank keeps only the rows whose slot
-    falls in its shard.  The values are brought to the tensor's layout
-    first (the collectives this costs are counted).  DTensor itself can
-    only replicate the whole tensor for this write.  None when the write
-    is not of that form."""
-    k = len(indices)
-    if not isinstance(self, DTensor) or self.ndim < k \
-            or any(i is None or i.ndim != 1 or i.shape[0] != self.shape[0]
-                   for i in indices) \
-            or tuple(values.shape) != (self.shape[0],) + tuple(
-                self.shape[k:]):
-        return None
-    pl = self.placements
-    if any(isinstance(p, Partial) for p in pl):
-        return None
-    mesh = self.device_mesh
-
-    def value_placement(p):
-        if isinstance(p, Shard) and p.dim == 0:
-            return Shard(0)
-        if isinstance(p, Shard) and p.dim >= k:
-            return Shard(p.dim - k + 1)
-        return Replicate()            # replicated, or an indexed dim
-    if not isinstance(values, DTensor):
-        values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim)
-    values = values.redistribute(mesh, [value_placement(p) for p in pl])
-    local = self.to_local()
-    rows = local.shape[0]
-    idx = [torch.empty((rows,), dtype=torch.long, device=local.device)
-           for _ in indices]
-    aten.index_put_(local, idx, values.to_local(), accumulate)
-    return self
-
-
 class _Counts:
     def __init__(self):
         self.flops = 0.0
@@ -311,10 +280,6 @@ class CostMode(TorchDispatchMode):
                 out = _sharded_gather(*args)
                 if out is not None:
                     return out
-            if func is aten.index_put_.default:
-                out = _row_index_put(*args, **kwargs)
-                if out is not None:
-                    return out
             try:
                 return func(*args, **kwargs)
             except (RuntimeError, NotImplementedError) as e:
@@ -358,9 +323,12 @@ class CostMode(TorchDispatchMode):
         flops, nbytes = _op_cost(func, args, kwargs, out)
         c.flops += flops
         c.bytes += nbytes
-        if not self.inner:          # a plain op outside any DTensor op
-            c.global_flops += flops
-            c.global_bytes += nbytes
+        if not self.inner:
+            # a plain op outside any DTensor op: whole, or one of the
+            # shards of a `map_shards` body
+            share = shard_share()
+            c.global_flops += flops * share
+            c.global_bytes += nbytes * share
         if nbytes:
             c.track(out)
         return out

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 PEAK_FLOPS = 989e12         # dense bf16 FLOP/s, H100 SXM5 datasheet
 HBM_BW = 3.35e12            # HBM3 B/s, H100 SXM5 datasheet
@@ -42,6 +42,22 @@ GPUS_PER_NODE = 8           # DGX H100
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" \
     / "dryrun_torch"
+
+# A sharded cell of the port against the JAX package's count of the same
+# cell (its HLO walk, collectives under the same link rule): at most
+# FLOP_BOUND × its FLOPs per device, and a collective term at most
+# COLL_BOUND × its own or under COLL_FLOOR_S.
+FLOP_BOUND = 1.25
+COLL_BOUND = 2.0
+COLL_FLOOR_S = 0.010
+
+
+def within_reference(flops: float, coll_s: float, ref_flops: float,
+                     ref_coll_s: float) -> Tuple[bool, bool]:
+    """(FLOPs within bound, collective term within bound) of a port cell
+    against the reference's numbers for it."""
+    return (flops <= FLOP_BOUND * ref_flops,
+            coll_s <= COLL_BOUND * ref_coll_s or coll_s < COLL_FLOOR_S)
 
 
 def wire_bytes(kind: str, operand_bytes: float, group: int) -> float:
@@ -147,25 +163,31 @@ def _fmt_s(x: float) -> str:
     return f"{x * 1e6:.0f}µs"
 
 
-def markdown_table(mesh: str = "pod") -> str:
+def markdown_table(mesh: str = "pod", records: Optional[List[dict]] = None,
+                   extra: Optional[Tuple[str, Callable]] = None) -> str:
+    """The roofline table of ``mesh``'s artifacts (or of ``records``);
+    ``extra`` = (header, fn(record) -> str) adds a last column."""
+    head, fn = extra or (None, None)
     lines = [
         "| arch | shape | compute | memory | collective | bound | "
-        "MODEL_FLOPS | MF/counted | what moves the dominant term |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "MODEL_FLOPS | MF/counted | what moves the dominant term |"
+        + (f" {head} |" if head else ""),
+        "|---|---|---|---|---|---|---|---|---|" + ("---|" if head else ""),
     ]
-    for rec in load(mesh):
+    for rec in load(mesh) if records is None else records:
         r = row(rec)
         if r is None:
             continue
+        more = f" {fn(rec)} |" if fn else ""
         if "skip" in r:
             lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
-                         f"SKIP | — | — | {r['skip'][:70]} |")
+                         f"SKIP | — | — | {r['skip'][:70]} |" + more)
             continue
         lines.append(
             f"| {r['arch']} | {r['shape']} | {_fmt_s(r['compute_s'])} | "
             f"{_fmt_s(r['memory_s'])} | {_fmt_s(r['collective_s'])} | "
             f"**{r['bound']}** | {r['model_flops']:.2e} | "
-            f"{r['flops_ratio']:.3f} | {r['hint']} |")
+            f"{r['flops_ratio']:.3f} | {r['hint']} |" + more)
     return "\n".join(lines)
 
 

@@ -22,6 +22,7 @@ import torch
 
 from ..models.common import resolve_device, tree_map
 from ..models.layers import cross_entropy
+from ..parallel.sharding import last_row, whole_on
 from . import optimizer as opt
 
 
@@ -128,10 +129,17 @@ def make_train_step(model, hyper: TrainHyper = TrainHyper(),
     return train_step
 
 
+def _argmax(row: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each logit row [B, V], int32; on a mesh the
+    vocab is gathered first (DTensor's argmax over a sharded dim fails
+    where the batch is sharded on two mesh dims)."""
+    return whole_on(row, -1).argmax(dim=-1).to(torch.int32)
+
+
 def make_serve_step(model, rules=None) -> Callable:
     def serve_step(params, cache, batch):
         logits, cache = model.decode_step(params, cache, batch, rules)
-        return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
+        return _argmax(logits[:, -1]), cache
 
     return serve_step
 
@@ -139,6 +147,6 @@ def make_serve_step(model, rules=None) -> Callable:
 def make_prefill_step(model, rules=None) -> Callable:
     def prefill(params, batch):
         logits = model.forward(params, batch, rules)
-        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+        return _argmax(last_row(logits))
 
     return prefill
