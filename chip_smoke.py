@@ -5,6 +5,7 @@
   python3 chip_smoke.py train_parity train     # the training phases
   python3 chip_smoke.py dense_parity moe_parity moe_serve   # dense + MoE
   python3 chip_smoke.py whisper_parity whisper_serve xlstm_parity xlstm_serve
+  python3 chip_smoke.py xlstm_train            # xLSTM training at 4096
 
 Phases, one line each; a failing phase raises and nothing catches it:
 
@@ -87,6 +88,13 @@ Phases, one line each; a failing phase raises and nothing catches it:
    bf16: ``make_prefill_step`` on 2 calls of 4 × 2048 tokens and the
    device ops of one more; then ``make_serve_step`` at batch 8, 128
    teacher-forced and 64 greedy tokens.  No kernel runs on this path.
+6g. xlstm_train: xlstm-1.3b at full width, one group (7 mLSTM, 1 sLSTM),
+   fp32 params, bf16 compute, remat "dots", AdamW, batch 1 × 4096: a
+   warm-up step and two timed steps, the device busy ms, idle share and
+   op count of one more step from a torch.profiler window, the peak
+   memory, and the cost counter's bytes and FLOPs for the same step on
+   meta tensors.  The loss, grad norm and params must stay finite.  No
+   kernel runs on this path.
 7. train_parity: fp32, TF32 off, B=2, S=256: one train step's loss, grad
    norm and every gradient through the kernels and without them, from one
    state: smollm-360m at full width, 2 layers, flash kernel against the
@@ -199,6 +207,9 @@ WHISPER_TOKENS = 64
 # greedy ones
 XLSTM_SERVE = types.SimpleNamespace(prefill_b=4, prefill_s=2048, prefills=2,
                                     decode_b=8, prompt=128, new=64)
+# xlstm-1.3b training at train_4k's length: one group (8 layers) at full
+# width, batch 1 × 4096, one warm-up step and two timed
+XLSTM_TRAIN = types.SimpleNamespace(b=1, s=4096, warmup=1, steps=2)
 # smollm-360m training: global batch 8 of 2048 tokens in 2 microbatches,
 # 20 steps, a checkpoint at 20, a restart that trains on to 24
 TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 2048, 2
@@ -997,16 +1008,18 @@ def profile_window(name: str, fn) -> None:
               f"{t / busy_ms:7.2%} op {e.key[:60]}")
 
 
-def device_ops(fn) -> int:
-    """The operations (kernels, copies, fills) that ``fn`` puts on the
-    card, counted from a torch.profiler trace of its CUDA activity."""
+def device_ops(fn) -> tuple:
+    """(the operations (kernels, copies, fills) that ``fn`` puts on the
+    card, their device ms summed), from a torch.profiler trace of its CUDA
+    activity alone."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
 
 
 def phase_serve(gen: torch.Generator, profile: bool = False) -> dict:
@@ -1809,7 +1822,7 @@ def phase_xlstm_serve(gen: torch.Generator, profile: bool = False) -> None:
                                   xs.prefill_b, xs.prefill_s, cfg.vocab,
                                   lambda i: None)
         tokens = batch(xs.prefill_b, xs.prefill_s)
-        ops = device_ops(lambda: prefill(params, {"tokens": tokens}))
+        ops, _ = device_ops(lambda: prefill(params, {"tokens": tokens}))
     prefill_peak = torch.cuda.max_memory_allocated()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1850,6 +1863,108 @@ def phase_xlstm_serve(gen: torch.Generator, profile: bool = False) -> None:
             profile_window("xlstm decode x8", lambda: [
                 serve(params, cache, last) for _ in range(8)])
     del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the port's cost counter on the xlstm_train step, on meta tensors (a
+# process of its own, no card)
+XLSTM_TRAIN_COUNT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import get_model
+from repro_torch.roofline.cost import count
+from repro_torch.train import abstract_state, make_train_step
+s, b = map(int, sys.argv[1:3])
+base = get_config("xlstm-1.3b")
+model = get_model(base.replace(n_layers=base.xlstm.slstm_every))
+_, ana = count(make_train_step(model), abstract_state(model),
+               model.input_specs(ShapeConfig("xlstm_train", "train", s, b)))
+print(json.dumps({"flops": ana.flops, "bytes": ana.bytes_accessed,
+                  "temp_bytes": ana.peak_bytes}))
+"""
+
+
+def phase_xlstm_train(gen: torch.Generator, profile: bool = False) -> None:
+    """xlstm-1.3b at full width, one group of 8 layers (7 mLSTM, 1 sLSTM),
+    fp32 params, bf16 compute, remat "dots" as published, AdamW: one train
+    step on batch 1 × 4096 tokens (train_4k's length) to warm up, two
+    timed, and one more whose device activity a torch.profiler window
+    records (its device busy ms and op count; the idle share is taken
+    against the timed steps' median); the peak memory, and what the
+    port's cost counter charges the same step on meta tensors (in a
+    subprocess beside the profiled step).  No kernel on this path."""
+    from repro_torch.checkpoint.serialize import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.roofline import report
+    from repro_torch.train import init_state, make_train_step
+
+    xt = XLSTM_TRAIN
+    base = get_config("xlstm-1.3b")
+    cfg = base.replace(n_layers=base.xlstm.slstm_every)
+    model = get_model(cfg)
+    step = make_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, gen, device="cuda")
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab,
+                                          (xt.b, xt.s + 1))).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step_ms, losses = [], []
+    for _ in range(xt.warmup + xt.steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))        # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    # the count runs beside the profiled step only: its host work would
+    # slow the timed ones
+    t_count = time.perf_counter()
+    counter = subprocess.Popen(
+        [sys.executable, "-c", XLSTM_TRAIN_COUNT, str(xt.s), str(xt.b)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(os.getcwd(), "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ops, busy_ms = device_ops(lambda: step(state, batch))
+        peak = torch.cuda.max_memory_allocated()
+        out, err = counter.communicate(timeout=600)
+    finally:
+        if counter.poll() is None:
+            counter.kill()
+            counter.wait()
+    if counter.returncode != 0:
+        raise AssertionError(f"xlstm_train count failed:\n{err[-3000:]}")
+    counted = json.loads(out.strip().splitlines()[-1])
+    grad_norm = float(metrics["grad_norm"])
+    if not np.isfinite(losses + [grad_norm]).all():
+        raise AssertionError(f"xlstm train: loss {losses}, grad norm "
+                             f"{grad_norm}")
+    bad = [k for k, t in flatten_tree(state["params"]).items()
+           if not torch.isfinite(t).all()]
+    if bad:
+        raise AssertionError(f"xlstm train: non-finite params {bad}")
+    ms = float(np.median(step_ms[xt.warmup:]))
+    log("xlstm_train", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, params=model.param_count(), batch=xt.b,
+        seq=xt.s, remat=cfg.remat,
+        dtype=f"params fp32, compute {cfg.compute_dtype}")
+    log("xlstm_train", step_ms=f"{ms:.3f}",
+        step_ms_all=[round(x, 3) for x in step_ms],
+        device_busy_ms=f"{busy_ms:.3f}",
+        device_idle_share=f"{1 - busy_ms / ms:.4f}",
+        device_ops_per_step=ops, peak_gb=f"{peak / 1e9:.3f}",
+        losses=[round(x, 5) for x in losses],
+        grad_norm=f"{grad_norm:.6f}")
+    log("xlstm_train", counted_bytes=f"{counted['bytes']:.4e}",
+        counted_flops=f"{counted['flops']:.4e}",
+        counted_memory_ms=f"{counted['bytes'] / report.HBM_BW * 1e3:.3f}",
+        counted_temp_gb=f"{counted['temp_bytes'] / 1e9:.3f}",
+        count_s=f"{time.perf_counter() - t_count:.3f}")
+    if profile:
+        profile_window("xlstm train step x1", lambda: step(state, batch))
+    del state, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2535,15 +2650,15 @@ def main() -> int:
     # with no arguments every phase runs and the result lines are printed;
     # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
     # zamba2_serve, moe_parity, moe_serve, whisper_parity, whisper_serve,
-    # xlstm_parity, xlstm_serve, train_parity, train, pod_sync, dryrun,
-    # profile)
+    # xlstm_parity, xlstm_serve, xlstm_train, train_parity, train,
+    # pod_sync, dryrun, profile)
     # runs just those, to debug or to trace a serve or train phase; profile
     # alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
                               "zamba2_parity", "zamba2_serve", "moe_parity",
                               "moe_serve", "whisper_parity", "whisper_serve",
-                              "xlstm_parity", "xlstm_serve", "train_parity",
-                              "train", "pod_sync", "dryrun"]
+                              "xlstm_parity", "xlstm_serve", "xlstm_train",
+                              "train_parity", "train", "pod_sync", "dryrun"]
     profile = "profile" in phases
     t_start = time.perf_counter()
 
@@ -2565,7 +2680,7 @@ def main() -> int:
         timed("parity", phase_parity, gen(1))
     if "serve" in phases or (profile and not {
             "zamba2_serve", "moe_serve", "whisper_serve", "xlstm_serve",
-            "train"} & set(phases)):
+            "xlstm_train", "train"} & set(phases)):
         launches["qwen2-7b serve"] = timed("serve", phase_serve, gen(0),
                                            profile)
     if "dense_parity" in phases:
@@ -2590,6 +2705,8 @@ def main() -> int:
         timed("xlstm_parity", phase_xlstm_parity, gen(9))
     if "xlstm_serve" in phases:
         timed("xlstm_serve", phase_xlstm_serve, gen(0), profile)
+    if "xlstm_train" in phases:
+        timed("xlstm_train", phase_xlstm_train, gen(10), profile)
     if "train_parity" in phases:
         launches.update(timed("train_parity", phase_train_parity, gen(5)))
     if "train" in phases:

@@ -23,7 +23,9 @@ how many pairs the change won (lower is better):
   serve phase's decode shape, with a table of scattered pages and with
   the shared-prefix table;
 - profile: the ``decode x8`` window's device busy ms and idle share, and
-  the paged kernels' ms and share of the busy time in it.
+  the paged kernels' ms and share of the busy time in it;
+- xlstm_train: the median step ms, the device busy ms, idle share and
+  ops of one step, and the peak memory.
 """
 from __future__ import annotations
 
@@ -61,6 +63,14 @@ def metrics(out: str) -> dict:
         if m:
             found[f"paged_{m.group(1)}_ms"] = float(m.group(2))
             found[f"paged_{m.group(1)}_host_us"] = float(m.group(3))
+        m = re.match(r"\[xlstm_train\] step_ms=" + NUM + ".* device_busy_ms="
+                     + NUM + " device_idle_share=" + NUM
+                     + " device_ops_per_step=" + NUM + " peak_gb=" + NUM,
+                     line)
+        if m:
+            for i, key in enumerate(("step_ms", "busy_ms", "idle_share",
+                                     "ops", "peak_gb"), 1):
+                found[f"xlstm_train_{key}"] = float(m.group(i))
         m = re.match(r"\[profile\] window=decode x8 .*device_busy_ms=" + NUM
                      + " device_idle_share=" + NUM, line)
         if m:
@@ -84,7 +94,8 @@ def run(checkout: str, phases: list) -> dict:
                            f"failed\n{proc.stdout[-2000:]}"
                            f"{proc.stderr[-2000:]}")
     for line in proc.stdout.splitlines():
-        if line.startswith(("[profile]", "[kernels] kernel=paged")):
+        if line.startswith(("[profile]", "[kernels] kernel=paged",
+                            "[xlstm_train]")):
             print(f"  {os.path.basename(checkout)} {line}")
     return metrics(proc.stdout)
 

@@ -8,7 +8,10 @@ cell both count ``ok``: FLOPs per device of each and their ratio, each
 collective term under the port's H100 model
 (`repro_torch.roofline.report.terms`, one link rule for both; JAX's
 collectives carry no ``span`` and are charged by their group size), the
-ops the port's counter had to replicate, and the bound of each.
+ops the port's counter had to replicate, the bound of each, and the port
+/ JAX bytes per device.  No bound applies to the bytes: the port charges
+every eager op's operands, JAX only its fusions' (held instead by how
+they grow with the sequence, in ``tests/test_torch_train_bytes.py``).
 
 A cell misses when the port counts more than ``FLOP_BOUND`` × JAX's FLOPs
 per device, or when its collective term is both over ``COLL_BOUND`` × JAX's
@@ -23,7 +26,7 @@ Usage:
 cells that miss are listed, then a summary).  ``--roofline`` prints
 instead the port's H100 roofline table of each mesh
 (`repro_torch.roofline.report.markdown_table`) with a last column for
-the port / JAX FLOPs per device.
+the port / JAX FLOPs and bytes per device.
 """
 from __future__ import annotations
 
@@ -68,6 +71,8 @@ def compare(port: dict, jax: dict) -> dict:
     views = port.get("replicated", {}).get("aten.view.default", 0)
     return {"port_flops": port["flops_per_device"],
             "jax_flops": jax["hlo_flops_per_device"], "ratio": ratio,
+            "bytes_ratio": port["bytes_per_device"]
+            / max(jax["hlo_bytes_per_device"], 1.0),
             "port_coll_s": tp["collective_s"],
             "jax_coll_s": tj["collective_s"],
             "views": views, "replicated": port.get("replicated", {}),
@@ -79,8 +84,8 @@ def compare(port: dict, jax: dict) -> dict:
 def table(ports: dict, jaxes: dict, everything: bool) -> tuple:
     rows = ["| arch | shape | mesh | port FLOP/dev | JAX FLOP/dev | "
             "port / JAX | port coll s | JAX coll s | replicated | "
-            "bound port / JAX |",
-            "|---|---|---|---|---|---|---|---|---|---|"]
+            "bound port / JAX | bytes/dev port / JAX |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
     misses, both = [], 0
     for key in sorted(set(ports) & set(jaxes)):
         port, jax = ports[key], jaxes[key]
@@ -101,23 +106,26 @@ def table(ports: dict, jaxes: dict, everything: bool) -> tuple:
             f"{'' if c['flops_ok'] else ' !'} | {c['port_coll_s']:.4g}"
             f"{'' if c['coll_ok'] else ' !'} | {c['jax_coll_s']:.4g} | "
             f"{rep or '—'}{'' if c['views_ok'] else ' !'} | "
-            f"{c['port_bound']} / {c['jax_bound']} |")
+            f"{c['port_bound']} / {c['jax_bound']} | "
+            f"{c['bytes_ratio']:.2f} |")
     return "\n".join(rows), misses, both
 
 
 def roofline(ports: dict, jaxes: dict) -> str:
     """The port's roofline table of each mesh, with the port / JAX FLOPs
-    per device where JAX counts the cell ``ok``."""
+    and bytes per device where JAX counts the cell ``ok``."""
     def ratio(rec):
         jax = jaxes.get((rec["arch"], rec["shape"], rec["mesh"]), {})
         if rec["status"] != "ok" or jax.get("status") != "ok":
             return "—"
-        return f"{rec['flops_per_device'] / jax['hlo_flops_per_device']:.2f}"
+        flops = rec["flops_per_device"] / jax["hlo_flops_per_device"]
+        nbytes = rec["bytes_per_device"] / jax["hlo_bytes_per_device"]
+        return f"{flops:.2f}, {nbytes:.2f}"
     out = []
     for mesh in ("pod", "multipod"):
         recs = [r for k, r in sorted(ports.items()) if k[2] == mesh]
-        out += [f"{mesh}:", markdown_table(records=recs,
-                                          extra=("port / JAX", ratio))]
+        out += [f"{mesh}:", markdown_table(
+            records=recs, extra=("port / JAX FLOP, bytes", ratio))]
     return "\n\n".join(out)
 
 

@@ -53,10 +53,11 @@ def ssd_scan_plain(xw: torch.Tensor, dta: torch.Tensor, b: torch.Tensor,
                          device=xw.device)
              if s0 is None else s0.float())
     starts = []
-    for ci in range(nc):
+    # unbound once: an index per chunk would have each index's backward
+    # write a zero gradient of the whole of chunk_state, O(C^2) bytes
+    for decay, add in zip(chunk_decay.unbind(2), chunk_state.unbind(2)):
         starts.append(state)
-        state = state * chunk_decay[:, :, ci, None, None] \
-            + chunk_state[:, :, ci]
+        state = state * decay[:, :, None, None] + add
     s_starts = torch.stack(starts, dim=2)                     # [B,H,C,P,N]
 
     # inter-chunk: exp(l_i)·(c_i · S_startᵀ)

@@ -252,6 +252,7 @@ def analyze_cell(arch: str, shape_name, mesh, hyper=None,
         "counted_bytes": ana.global_bytes,
         "flops_per_device": ana.flops,
         "bytes_per_device": ana.bytes_accessed,
+        "bytes_by_op": ana.bytes_by_op,
         "collectives": ana.collective_ops,
         "replicated": ana.replicated,
     })

@@ -128,11 +128,12 @@ def mlstm_chunked(q, k, v, ig, fg, chunk: int,
         c_st, n_st, m_st = (t.float() for t in state)
     tri = torch.ones((qc, qc), dtype=torch.bool, device=q.device).tril()
 
+    # one split per operand: a slice per chunk would have each slice's
+    # backward write a zero gradient of the whole sequence, O(S^2) bytes
     outs = []
-    for c0 in range(0, s, qc):
-        qq, kk, vv = q[:, c0:c0 + qc], k[:, c0:c0 + qc], v[:, c0:c0 + qc]
-        lii = logi[:, c0:c0 + qc]
-        fcum = logf[:, c0:c0 + qc].cumsum(dim=1)          # [B,Q,H]
+    for qq, kk, vv, lii, lff in zip(*(t.split(qc, dim=1)
+                                      for t in (q, k, v, logi, logf))):
+        fcum = lff.cumsum(dim=1)                          # [B,Q,H]
         # intra log-weights D[i,j] = Fcum_i − Fcum_j + logi_j  (j ≤ i)
         dlog = fcum[:, :, None, :] - fcum[:, None, :, :] \
             + lii[:, None, :, :]                          # [B,Q,Q,H]
@@ -281,8 +282,11 @@ def _slstm_loop(r, wx, c=None, n=None, m=None, h_prev=None):
                            wx.new_full((b, h, dh), -1e30), zeros)
     c, n, m, h_prev = (t.float() for t in (c, n, m, h_prev))
     hs = []
-    for t in range(s):
-        g = wx[:, t] + torch.einsum("bhd,hdg->bhg", h_prev, r)
+    # unbound once, as the JAX package scans over the time-major wx: an
+    # index per step would have each step's backward write a zero gradient
+    # of the whole of wx, O(S^2) bytes
+    for wt in wx.unbind(1):
+        g = wt + torch.einsum("bhd,hdg->bhg", h_prev, r)
         zr, ir, fr, orr = g.split(dh, dim=-1)            # [B,H,dh] each
         logf = F.logsigmoid(fr)
         m_new = torch.maximum(logf + m, ir)

@@ -19,11 +19,12 @@ Three quantities are recorded:
 
   * **flops**: ``torch.utils.flop_counter``'s formulas (matmuls,
     convolutions, attention) on the local shapes;
-  * **bytes**: every non-view local op's input and output bytes.  The
-    port runs eagerly, op by op, so each op's operands cross HBM; this is
-    the eager counterpart of the JAX walk, which charges only fusion
-    boundaries.  The two byte models differ by design: an elementwise
-    chain that XLA fuses into one pass counts once per op here;
+  * **bytes**: every non-view local op's input and output bytes, in all
+    and by op (`Analysis.bytes_by_op`).  The port runs eagerly, op by
+    op, so each op's operands cross HBM; this is the eager counterpart
+    of the JAX walk, which charges only fusion boundaries.  The two byte
+    models differ by design: an elementwise chain that XLA fuses into
+    one pass counts once per op here;
   * **collectives**: the ``_c10d_functional`` ops that DTensor issues, by
     kind (JAX's names: all-gather, all-reduce, reduce-scatter,
     all-to-all), operand bytes, group size, span (rank 0's group, from
@@ -106,6 +107,8 @@ class Analysis:
     # at their global shapes, a `map_shards` body's ops times its shards
     global_flops: float = 0.0
     global_bytes: float = 0.0
+    # the local bytes by op (its overload packet's name), largest first
+    bytes_by_op: Dict[str, float] = field(default_factory=dict)
 
 
 def _nbytes(x) -> int:
@@ -229,6 +232,7 @@ class _Counts:
         self.global_flops = 0.0
         self.global_bytes = 0.0
         self.coll: Dict[Tuple[str, int, int, int], int] = defaultdict(int)
+        self.by_op: Dict[str, float] = defaultdict(float)
         self.replicated: Dict[str, int] = defaultdict(int)
         self.live = 0
         self.peak = 0
@@ -236,12 +240,13 @@ class _Counts:
 
     def snapshot(self):
         return (self.flops, self.bytes, self.global_flops,
-                self.global_bytes, dict(self.coll))
+                self.global_bytes, dict(self.coll), dict(self.by_op))
 
     def restore(self, snap):
         (self.flops, self.bytes, self.global_flops, self.global_bytes,
-         coll) = snap
+         coll, by_op) = snap
         self.coll = defaultdict(int, coll)
+        self.by_op = defaultdict(float, by_op)
 
     def track(self, out):
         """Add the storages that ``out`` brings to the live bytes; each is
@@ -323,6 +328,8 @@ class CostMode(TorchDispatchMode):
         flops, nbytes = _op_cost(func, args, kwargs, out)
         c.flops += flops
         c.bytes += nbytes
+        if nbytes:
+            c.by_op[func._overloadpacket.__name__] += nbytes
         if not self.inner:
             # a plain op outside any DTensor op: whole, or one of the
             # shards of a `map_shards` body
@@ -342,7 +349,8 @@ class CostMode(TorchDispatchMode):
                             for (k, ob, g, sp), n in sorted(c.coll.items())],
             peak_bytes=int(c.peak), replicated=dict(c.replicated),
             global_flops=float(c.global_flops),
-            global_bytes=float(c.global_bytes))
+            global_bytes=float(c.global_bytes),
+            bytes_by_op=dict(sorted(c.by_op.items(), key=lambda kv: -kv[1])))
 
 
 def count(fn: Callable, *args) -> Tuple[Any, Analysis]:
