@@ -129,6 +129,15 @@ Phases, one line each; a failing phase raises and nothing catches it:
    against the JAX package's numbers for it (`DRYRUN_REFERENCE`): at
    most 1.25 × its FLOPs per device, a collective term at most 2 × its
    or under 10 ms, and no view the counter had to replicate.
+11. sharded_train: cases 1 and 3 of ``tests/test_torch_sharded_train.py``
+   through its worker (``tests/torch_sharded_worker.py``), in 8 gloo
+   processes each on the CPU (no card), started beside the dryrun phase:
+   olmoe-1b-7b's smoke config in fp32 on a ("data", "model") mesh of
+   (2, 4) at batch 4 (prefill, decode and one train step), and its train
+   step at batch 16 in 2 microbatches on ("pod", "data", "model") of
+   (2, 2, 2), each against the same steps unsharded within 1e-5, with
+   equal tokens; the smallest top-k margin met is printed.  It holds the
+   sharded MoE block and the accumulated step under this machine's torch.
 
 Run it from the root of a checkout: it imports ``src/`` of the working
 directory.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -2639,6 +2648,54 @@ def phase_dryrun() -> None:
                  "train phase runs the flash kernel")
 
 
+SHARDED_TRAIN_CASES = {     # cases 1 and 3 of the test of the same name
+    "olmoe_b4_data2_model4": dict(
+        arch="olmoe-1b-7b", kinds=["prefill", "decode", "train"], seq=16,
+        batch=4, mesh=[2, 4], names=["data", "model"]),
+    "olmoe_b16_accum2_pod2_data2_model2": dict(
+        arch="olmoe-1b-7b", kinds=["train"], seq=16, batch=16, accum=2,
+        mesh=[2, 2, 2], names=["pod", "data", "model"]),
+}
+
+
+def sharded_worker():
+    """``tests/torch_sharded_worker.py`` of the checkout."""
+    sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+    import torch_sharded_worker
+    return torch_sharded_worker
+
+
+def start_sharded_train() -> dict:
+    """Start each case of `SHARDED_TRAIN_CASES` in a thread of its own
+    (each runs its ranks as processes that see no card); returns their
+    futures, which `phase_sharded_train` reads."""
+    from concurrent.futures import ThreadPoolExecutor
+    worker = sharded_worker()
+    pool = ThreadPoolExecutor(len(SHARDED_TRAIN_CASES))
+
+    def timed_run(name, case):
+        t0 = time.perf_counter()
+        errs = worker.run(case, os.path.join(os.getcwd(), "build",
+                                             "sharded_train", name),
+                          timeout=600)
+        return errs, time.perf_counter() - t0
+
+    futures = {name: pool.submit(timed_run, name, case)
+               for name, case in SHARDED_TRAIN_CASES.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_sharded_train(futures: dict, card: str) -> None:
+    for name, future in futures.items():
+        errs, seconds = future.result()
+        log("sharded_train", case=name, seconds=f"{seconds:.3f}",
+            card=repr(card), torch=torch.__version__,
+            **{k: v if k.endswith("_differ") else f"{v:.3e}"
+               for k, v in errs.items()})
+        sharded_worker().check(errs, SHARDED_TRAIN_CASES[name]["kinds"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card; this script runs on the "
@@ -2651,14 +2708,15 @@ def main() -> int:
     # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
     # zamba2_serve, moe_parity, moe_serve, whisper_parity, whisper_serve,
     # xlstm_parity, xlstm_serve, xlstm_train, train_parity, train,
-    # pod_sync, dryrun, profile)
+    # pod_sync, dryrun, sharded_train, profile)
     # runs just those, to debug or to trace a serve or train phase; profile
     # alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
                               "zamba2_parity", "zamba2_serve", "moe_parity",
                               "moe_serve", "whisper_parity", "whisper_serve",
                               "xlstm_parity", "xlstm_serve", "xlstm_train",
-                              "train_parity", "train", "pod_sync", "dryrun"]
+                              "train_parity", "train", "pod_sync", "dryrun",
+                              "sharded_train"]
     profile = "profile" in phases
     t_start = time.perf_counter()
 
@@ -2713,8 +2771,12 @@ def main() -> int:
         launches["smollm-360m train"] = timed("train", phase_train, profile)
     if "pod_sync" in phases:
         launches["smollm-360m pod_sync"] = timed("pod_sync", phase_pod_sync)
+    # on the CPU beside the dryrun phase's subprocesses
+    sharded = start_sharded_train() if "sharded_train" in phases else None
     if "dryrun" in phases:
         timed("dryrun", phase_dryrun)
+    if sharded:
+        timed("sharded_train", phase_sharded_train, sharded, card)
     log("time", of="all", seconds=f"{time.perf_counter() - t_start:.3f}")
     if sys.argv[1:]:
         return 0

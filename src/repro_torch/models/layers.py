@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel.sharding import logical_constraint as lc
-from ..parallel.sharding import (map_shards, redistribute, shard_dims,
-                                 weight_for)
+from ..parallel.sharding import (map_shards, placements, redistribute,
+                                 shard_dims, spec_for, weight_for)
 from .common import to_dtype
 
 NEG_INF = -1e30
@@ -474,13 +474,27 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
     aux).  Choices past an expert's capacity are dropped: they go to an
     overflow row of the dispatch buffer, which is cut off, and get no
     weight in the combine.  The expert products are batched over the
-    padded experts, whose weights no choice reaches."""
+    padded experts, whose weights no choice reaches.
+
+    On a mesh the capacity, slots and drops are those of the call's
+    global tokens, as in JAX; the flattened tokens and the output keep
+    the batch's placements (their gradients too), and the dispatch and
+    the combine run per shard (`_dispatch`, `_combine`): DTensor's
+    strategies for these gathers and scatters differ between torch
+    versions and fail in some."""
     m = cfg.moe
     dt = to_dtype(cfg.compute_dtype)
     y = rms_norm(x, params["ln"], cfg.norm_eps)
     b, s, d = y.shape
     n_tok = b * s
-    flat = y.reshape(n_tok, d)
+    # flattened from the batch's placements alone: some torch versions
+    # cannot place the view of a sequence sharded under sequence
+    # parallelism.  The flattened tokens are held there too: the router's
+    # backward would otherwise hand their gradient back split over the
+    # model axis as well, which the view back to [B, S, d] cannot place
+    # when a batch shard holds fewer rows than that axis has ranks
+    y = lc(y, ("batch", None, "act_embed"), rules)
+    flat = lc(y.reshape(n_tok, d), ("batch", "act_embed"), rules)
     probs, top_p, top_e, aux = moe_route(params["router"], flat, m)
     capacity = moe_capacity(n_tok, m)
     flat_e = top_e.reshape(-1)                            # [T·k]
@@ -489,23 +503,89 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
     if ROUTE_LOG is not None:
         ROUTE_LOG.append({"probs": probs.detach(), "top_e": top_e,
                           "keep": keep})
-    tok_idx = torch.arange(n_tok * m.top_k, device=x.device) // m.top_k
     e_idx = torch.where(keep, flat_e, m.e_pad)            # overflow row
     s_idx = torch.where(keep, slot, 0)
-    expert_in = torch.zeros((m.e_pad + 1, capacity, d), dtype=dt,
-                            device=x.device)
-    expert_in = expert_in.index_put((e_idx, s_idx),
-                                    cast(flat[tok_idx], dt))[:-1]
+    experts, tok, exp, by_tok, by_exp = _moe_shards(flat, m.e_pad, rules)
+    expert_in = _unstack(map_shards(
+        functools.partial(_dispatch, k=m.top_k, capacity=capacity, dt=dt),
+        (flat, e_idx, s_idx, experts), (tok, tok, tok, exp), (by_tok,)))
     expert_in = lc(expert_in, ("experts", None, "act_embed"), rules)
     h = F.silu(torch.bmm(expert_in, cast(params["w_gate"], dt))) \
         * torch.bmm(expert_in, cast(params["w_up"], dt))
     expert_out = lc(torch.bmm(h, cast(params["w_down"], dt)),
                     ("experts", None, "act_embed"), rules)
-    gathered = expert_out[torch.where(keep, flat_e, 0), s_idx]   # [T·k, d]
-    weight = torch.where(keep, top_p.reshape(-1), 0.0).to(dt)
-    out = torch.zeros((n_tok, d), dtype=dt, device=x.device).index_add(
-        0, tok_idx, gathered * weight[:, None])
+    out = _unstack(map_shards(
+        functools.partial(_combine, k=m.top_k, dt=dt),
+        (expert_out, e_idx, s_idx, top_p.reshape(-1), experts),
+        (exp, tok, tok, tok, exp), (by_exp,)))
+    out = lc(out, ("batch", "act_embed"), rules)
     return out.reshape(b, s, d), aux
+
+
+def _moe_shards(flat, e_pad: int, rules):
+    """The expert ids [e_pad] and the placements of `_dispatch` and
+    `_combine`: the tokens and their choices split as the batch, the ids
+    as the experts, and the output of each stacked on a new leading dim
+    over the mesh dims that split what it sums (the tokens for the
+    dispatch, the experts for the combine).  Without a mesh, plain ids
+    and no placements."""
+    experts = torch.arange(e_pad, device=flat.device)
+    if rules is None or not isinstance(flat, DTensor):
+        return experts, None, None, None, None
+    mesh = flat.device_mesh
+    experts = DTensor.from_local(experts, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    tok = placements(spec_for(("batch",), rules), mesh)
+    exp = placements(spec_for(("experts",), rules), mesh)
+
+    def stacked(first, second):
+        return [Shard(0) if a != Replicate() else
+                Shard(1) if b != Replicate() else Replicate()
+                for a, b in zip(first, second)]
+    return experts, tok, exp, stacked(tok, exp), stacked(exp, tok)
+
+
+def _unstack(x: torch.Tensor) -> torch.Tensor:
+    """The blocks of `_dispatch` or `_combine` summed over their stacked
+    dim (one block, a view, without a mesh)."""
+    return x.sum(dim=0) if isinstance(x, DTensor) else x[0]
+
+
+def _local(e_idx, experts):
+    """Which choices go to the experts held here, and their rows."""
+    inside = (e_idx >= experts[0]) & (e_idx <= experts[-1])
+    return inside, e_idx - experts[0]
+
+
+def _dispatch(flat, e_idx, s_idx, experts, *, k, capacity, dt):
+    """`moe_block`'s dispatch on one rank: the kept choices of its tokens
+    (flat [T, d]; e_idx, s_idx [T·k], e_idx past the experts for a drop)
+    that go to the experts it holds (``experts``: their ids) written into
+    their slots.  Returns [1, experts, capacity, d]: on a mesh, one block
+    per rank that splits the tokens, summed by the caller."""
+    inside, row = _local(e_idx, experts)
+    n = experts.shape[0]
+    tok_idx = torch.arange(e_idx.shape[0], device=flat.device) // k
+    buf = torch.zeros((n + 1, capacity, flat.shape[1]), dtype=dt,
+                      device=flat.device)
+    return buf.index_put((torch.where(inside, row, n),
+                          torch.where(inside, s_idx, 0)),
+                         cast(flat[tok_idx], dt))[:-1][None]
+
+
+def _combine(expert_out, e_idx, s_idx, weight, experts, *, k, dt):
+    """`moe_block`'s combine on one rank: its tokens' kept choices that
+    the experts it holds computed (expert_out [experts, capacity, d]),
+    weighted by the renormalised router probabilities (weight [T·k]) and
+    summed per token.  Returns [1, T, d]: on a mesh, one block per rank
+    that splits the experts, summed by the caller."""
+    inside, row = _local(e_idx, experts)
+    gathered = expert_out[torch.where(inside, row, 0), s_idx]   # [T·k, d]
+    weight = torch.where(inside, weight, 0.0).to(dt)
+    tok_idx = torch.arange(e_idx.shape[0], device=e_idx.device) // k
+    return torch.zeros((e_idx.shape[0] // k, expert_out.shape[-1]),
+                       dtype=dt, device=e_idx.device).index_add(
+        0, tok_idx, gathered * weight[:, None])[None]
 
 
 # -------------------------------------------------------------- embeddings

@@ -19,10 +19,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.common import resolve_device, tree_map
 from ..models.layers import cross_entropy
-from ..parallel.sharding import last_row, whole_on
+from ..parallel.sharding import last_row, redistribute, whole_on
 from . import optimizer as opt
 
 
@@ -93,13 +94,21 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper(),
         return (loss.detach(), {n: v.detach() for n, v in parts.items()},
                 opt.unflatten(params, grads))
 
+    def microbatch(x, i):
+        """Rows [i·B/k, (i+1)·B/k) of the global batch ``x``.  A DTensor
+        is made whole first and its rows placed as ``x`` is: DTensor's
+        view of a dim sharded on two mesh dims gives wrong local shapes,
+        and splitting each rank's shard would change which rows make up
+        a microbatch (an MoE step's capacity, drops and aux loss)."""
+        mb = whole_on(x, 0).reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+        return redistribute(mb, x.placements) if isinstance(x, DTensor) \
+            else mb
+
     def accumulated(params, batch):
-        mbs = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])
-               for n, x in batch.items()}
         grads, loss = None, 0.0
         for i in range(k):
-            mb_loss, _, mb_grads = single(params, {n: x[i] for n, x
-                                                   in mbs.items()})
+            mb_loss, _, mb_grads = single(params, {
+                n: microbatch(x, i) for n, x in batch.items()})
             loss = loss + mb_loss
             if grads is None:
                 grads = mb_grads
