@@ -122,11 +122,12 @@ Phases, one line each; a failing phase raises and nothing catches it:
    The sync's ms, the int8 bytes per sync, the peak memory per process
    and whether gloo's all-gather takes CUDA tensors are printed.
 10. dryrun: ``repro_torch.launch.dryrun`` in subprocesses (no card, a
-   fake process group) for smollm-360m × train_4k and qwen2-7b ×
-   prefill_32k on the (16, 16) mesh, and for one device at the train
-   phase's shape; the H100 roofline terms of each, and the train phase's
-   measured step beside the one-device bound.  Each pod cell is held
-   against the JAX package's numbers for it (`DRYRUN_REFERENCE`): at
+   fake process group), all started together: smollm-360m × train_4k and
+   qwen2-7b × prefill_32k on the (16, 16) mesh, olmoe-1b-7b × train_4k on
+   (16, 16) and (2, 16, 16), and one device at the train phase's shape;
+   the H100 roofline terms of each, and the train phase's measured step
+   beside the one-device bound.  Each mesh cell is held against the JAX
+   package's numbers for it (``scripts/jax_dryrun_reference.json``): at
    most 1.25 × its FLOPs per device, a collective term at most 2 × its
    or under 10 ms, and no view the counter had to replicate.
 11. sharded_train: cases 1 and 3 of ``tests/test_torch_sharded_train.py``
@@ -243,12 +244,17 @@ XLSTM_TIE, XLSTM_BATCHES = 1e-4, 3
 POD_RANKS, POD_STEPS, POD_SYNC_EVERY = 2, 4, 2
 # the train phase's measured median step, for the dryrun phase
 TRAIN_RESULT: dict = {}
-# the JAX package's dry-run of the same (16, 16) cells: FLOPs per device
-# from its HLO walk, and the collective term `report.terms` gives its
-# collectives (JAX 0.9 on a CPU, `python -m repro.launch.dryrun`); the
-# port's per-device counts must stay within `report.within_reference`
-DRYRUN_REFERENCE = {("smollm-360m", "train_4k"): (1.2717e14, 0.9217),
-                    ("qwen2-7b", "prefill_32k"): (1.1180e14, 0.0814)}
+# the dryrun phase's cells by mesh, each held against the JAX package's
+# dry-run of the same cell (FLOPs per device from its HLO walk, and the
+# collective term `report.terms` gives its collectives), as
+# `scripts/torch_dryrun_vs_jax.py --write-reference` wrote them into
+# DRYRUN_REFERENCE; the port's per-device counts must stay within
+# `report.within_reference`
+DRYRUN_CELLS = {"pod": [("smollm-360m", "train_4k"),
+                        ("qwen2-7b", "prefill_32k"),
+                        ("olmoe-1b-7b", "train_4k")],
+                "multipod": [("olmoe-1b-7b", "train_4k")]}
+DRYRUN_REFERENCE = os.path.join("scripts", "jax_dryrun_reference.json")
 GRAD_TOL = {"smollm-360m": 1e-4, "zamba2-1.2b": SSD_TOL,
             "olmoe-1b-7b": SSD_TOL, "whisper-medium": SSD_TOL,
             "xlstm-1.3b": SSD_TOL}
@@ -2559,20 +2565,24 @@ print(json.dumps(rec))
 
 def phase_dryrun() -> None:
     """The dry-run in subprocesses, all started together (no card; a fake
-    process group): smollm-360m × train_4k and qwen2-7b × prefill_32k on
-    the (16, 16) pod mesh through the module's command line, and one
-    device at the train phase's own shape; the H100 roofline terms of
-    each, each pod cell against the JAX package's (`DRYRUN_REFERENCE`),
-    and the train phase's measured step beside the one-device cell's
-    bound where that phase ran."""
+    process group): each cell of `DRYRUN_CELLS` on its production mesh
+    through the module's command line, and one device at the train
+    phase's own shape; the H100 roofline terms of each, each mesh cell
+    against the JAX package's (`DRYRUN_REFERENCE`), and the train phase's
+    measured step beside the one-device cell's bound where that phase
+    ran."""
     from repro_torch.roofline import report
+    with open(os.path.join(os.getcwd(), DRYRUN_REFERENCE)) as f:
+        reference = {(r["arch"], r["shape"], r["mesh"]): r
+                     for r in json.load(f)["cells"]}
     env = dict(os.environ, PYTHONPATH=os.path.join(os.getcwd(), "src"),
                CUDA_VISIBLE_DEVICES="")
-    procs = {cell: subprocess.Popen(
+    flag = {"pod": "single", "multipod": "multi"}
+    procs = {(arch, shape, mesh): subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         cell[0], "--shape", cell[1], "--force"], env=env,
+         arch, "--shape", shape, "--mesh", flag[mesh], "--force"], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cell in DRYRUN_REFERENCE}
+        for mesh, cells in DRYRUN_CELLS.items() for arch, shape in cells}
     procs["one"] = subprocess.Popen(
         [sys.executable, "-c", DRYRUN_ONE_DEVICE, str(TRAIN_S),
          str(TRAIN_B), str(TRAIN_ACCUM)], env=env, stdout=subprocess.PIPE,
@@ -2590,10 +2600,13 @@ def phase_dryrun() -> None:
                 proc.kill()
                 proc.wait()
     cells = []
-    for arch, shape in DRYRUN_REFERENCE:
+    for key in procs:
+        if key == "one":
+            continue
+        arch, shape, mesh = key
         with open(os.path.join(os.getcwd(), "artifacts", "dryrun_torch",
-                               f"{arch}__{shape}__pod.json")) as f:
-            cells.append((f"pod 16x16, {arch} {shape}", json.load(f)))
+                               f"{arch}__{shape}__{mesh}.json")) as f:
+            cells.append((f"{mesh} {arch} {shape}", json.load(f)))
     card = json.loads(outs["one"].strip().splitlines()[-1])
     cells.append((f"one device, {TRAIN_B}x{TRAIN_S} accum {TRAIN_ACCUM}",
                   card))
@@ -2602,6 +2615,7 @@ def phase_dryrun() -> None:
             raise AssertionError(f"dryrun {name}: {rec}")
         t = report.terms(rec)
         log("dryrun", cell=name.replace(" ", "_"), chips=rec["chips"],
+            torch=rec["torch_version"],
             flops_per_device=f"{rec['flops_per_device']:.4e}",
             bytes_per_device=f"{rec['bytes_per_device']:.4e}",
             compute_s=f"{t['compute_s']:.6f}",
@@ -2616,25 +2630,28 @@ def phase_dryrun() -> None:
         log("dryrun", cell=name.replace(" ", "_"), top_collectives=[
             (o["kind"], o["operand_bytes"], o["group_size"], o["span"],
              o["count"]) for o in top])
-        ref = DRYRUN_REFERENCE.get((rec["arch"], rec["shape"]))
-        if ref is None or rec["chips"] == 1:
+        if rec["chips"] == 1:
             continue
-        ratio = rec["flops_per_device"] / ref[0]
+        ref = reference[(rec["arch"], rec["shape"], rec["mesh"])]
+        ratio = rec["flops_per_device"] / ref["flops_per_device"]
         log("dryrun", cell=name.replace(" ", "_"),
-            jax_flops_per_device=f"{ref[0]:.4e}",
+            jax_flops_per_device=f"{ref['flops_per_device']:.4e}",
             flops_over_jax=f"{ratio:.4f}", bound=report.FLOP_BOUND,
-            jax_collective_s=ref[1],
-            collective_over_jax=f"{t['collective_s'] / ref[1]:.4f}",
+            jax_collective_s=f"{ref['collective_s']:.6f}",
+            collective_over_jax=f"{t['collective_s']
+                                   / ref['collective_s']:.4f}",
             collective_bound=report.COLL_BOUND)
         flops_ok, coll_ok = report.within_reference(
-            rec["flops_per_device"], t["collective_s"], *ref)
+            rec["flops_per_device"], t["collective_s"],
+            ref["flops_per_device"], ref["collective_s"])
         if not flops_ok:
             raise AssertionError(f"dryrun {name}: {ratio:.3f} × JAX's FLOPs "
                                  f"per device (bound {report.FLOP_BOUND})")
         if not coll_ok:
             raise AssertionError(
                 f"dryrun {name}: collective term {t['collective_s']:.4f} s "
-                f"against JAX's {ref[1]} s (bound {report.COLL_BOUND}×)")
+                f"against JAX's {ref['collective_s']:.4f} s (bound "
+                f"{report.COLL_BOUND}×)")
         if "aten.view.default" in rec["replicated"]:
             raise AssertionError(f"dryrun {name}: views placed by the "
                                  f"counter {rec['replicated']}")

@@ -8,6 +8,9 @@ above 1 runs more than its share on each device: replicated over a mesh
 dim, or computed whole where a split was possible.  The ops come out
 largest first.  Plain ops inside `map_shards` bodies are not listed.
 
+`op_rows` and `ratios` serve other traces too (a smoke cell on a small
+fake mesh, in ``tests/test_torch_dryrun_moe.py``).
+
 Usage:
   PYTHONPATH=src python scripts/torch_dryrun_flops_by_op.py ARCH SHAPE
       [--mesh pod|multipod] [--top 20]
@@ -15,6 +18,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 from collections import defaultdict
 
 import torch
@@ -25,9 +29,11 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.roofline import cost
 
 
-def by_op(arch: str, shape: str, multi_pod: bool) -> tuple:
-    """(the cell's record, {(op, shapes, placements): [device FLOPs,
-    global FLOPs, calls]})."""
+@contextlib.contextmanager
+def op_rows():
+    """Within the block, the cost counter also sums each DTensor op's
+    FLOPs into the yielded {(op, shapes, placements): [device FLOPs,
+    global FLOPs, calls]}."""
     rows = defaultdict(lambda: [0.0, 0.0, 0])
     counted = cost.CostMode.__torch_dispatch__
 
@@ -49,12 +55,28 @@ def by_op(arch: str, shape: str, multi_pod: bool) -> tuple:
 
     cost.CostMode.__torch_dispatch__ = dispatch
     try:
-        with dryrun.fake_world(512 if multi_pod else 256):
-            mesh = make_production_mesh(multi_pod=multi_pod,
-                                        device_type="cpu")
-            rec = dryrun.analyze_cell(arch, shape, mesh)
+        yield rows
     finally:
         cost.CostMode.__torch_dispatch__ = counted
+
+
+def ratios(rows: dict, devices: int) -> list:
+    """(op, shapes, placements, device FLOPs, even share, ratio, calls) of
+    each row, largest first: the ratio is above 1 where each device runs
+    more than its even share (global FLOPs / devices)."""
+    out = []
+    for (op, shapes, pls), (flops, total, calls) in rows.items():
+        share = total / devices
+        out.append((op, shapes, pls, flops, share,
+                    flops / share if share else float("inf"), calls))
+    return sorted(out, key=lambda r: -r[3])
+
+
+def by_op(arch: str, shape: str, multi_pod: bool) -> tuple:
+    """(the cell's record, `op_rows`'s rows of its trace)."""
+    with op_rows() as rows, dryrun.fake_world(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        rec = dryrun.analyze_cell(arch, shape, mesh)
     return rec, rows
 
 
@@ -70,10 +92,8 @@ def main():
     print(f"{args.arch} × {args.shape} × {args.mesh}: "
           f"{rec['flops_per_device']:.4e} FLOPs per device, torch "
           f"{torch.__version__}")
-    for (op, shapes, pls), (flops, total, calls) in sorted(
-            rows.items(), key=lambda kv: -kv[1][0])[:args.top]:
-        share = total / n
-        ratio = flops / share if share else float("inf")
+    for op, shapes, pls, flops, share, ratio, calls in \
+            ratios(rows, n)[:args.top]:
         print(f"  {flops:.4e} per device, {share:.4e} even share, "
               f"x{ratio:.2f}, {calls} calls: {op} {shapes} {pls}")
 

@@ -19,12 +19,25 @@ and over ``COLL_FLOOR_S`` (the bounds of `repro_torch.roofline.report`);
 such numbers are marked with ``!``.  The exit code is 1 when a cell
 misses.
 
+JAX's side can also travel as data, for a machine without JAX:
+``--write-reference FILE`` writes, from the JAX artifacts, one entry per
+cell with its status and JAX's FLOPs and bytes per device, collective
+term and dominant term (``scripts/jax_dryrun_reference.json`` is the
+committed one, which ``chip_smoke.py``'s dryrun phase reads too), and
+``--reference FILE`` reads such a table in place of ``--jax DIR``.
+
 Usage:
-  PYTHONPATH=src python scripts/torch_dryrun_vs_jax.py [--jax DIR]
-      [--torch DIR] [--all] [--roofline]
+  PYTHONPATH=src python scripts/torch_dryrun_vs_jax.py [--jax DIR |
+      --reference FILE] [--torch DIR] [--all | --beside DIR | --roofline]
+  PYTHONPATH=src python scripts/torch_dryrun_vs_jax.py --write-reference
+      scripts/jax_dryrun_reference.json [--jax DIR]
 ``--all`` also lists the cells within both bounds (by default only the
-cells that miss are listed, then a summary).  ``--roofline`` prints
-instead the port's H100 roofline table of each mesh
+cells that miss are listed, then a summary), each with the torch version
+that counted it.  ``--beside DIR`` prints instead the port / JAX FLOPs
+and bytes per device and collective term and the trace seconds of each
+cell beside those of the port's artifacts in DIR (another torch
+version's run).
+``--roofline`` prints instead the port's H100 roofline table of each mesh
 (`repro_torch.roofline.report.markdown_table`) with a last column for
 the port / JAX FLOPs and bytes per device.
 """
@@ -45,11 +58,18 @@ DENSE = ("smollm-360m", "qwen2-7b", "command-r-35b", "mistral-large-123b",
          "llava-next-34b")
 
 
-def as_port_record(rec: dict) -> dict:
-    """A JAX artifact with the port's key names, for `terms`."""
-    out = dict(rec)
-    out["flops_per_device"] = rec["hlo_flops_per_device"]
-    out["bytes_per_device"] = rec["hlo_bytes_per_device"]
+def reference(rec: dict) -> dict:
+    """One JAX artifact as a reference entry: its status and, where ``ok``,
+    FLOPs and bytes per device, collective term and dominant term under
+    the port's H100 model (JAX's collectives carry no ``span`` and are
+    charged by their group size)."""
+    out = {k: rec[k] for k in ("arch", "shape", "mesh", "status")}
+    if rec["status"] == "ok":
+        t = terms(dict(rec, flops_per_device=rec["hlo_flops_per_device"],
+                       bytes_per_device=rec["hlo_bytes_per_device"]))
+        out.update(flops_per_device=rec["hlo_flops_per_device"],
+                   bytes_per_device=rec["hlo_bytes_per_device"],
+                   collective_s=t["collective_s"], bound=t["bound"])
     return out
 
 
@@ -61,22 +81,38 @@ def load(directory: Path) -> dict:
     return recs
 
 
-def compare(port: dict, jax: dict) -> dict:
+def load_reference(path: Path) -> dict:
+    """A table that `--write-reference` wrote, keyed as `load`'s."""
+    return {(r["arch"], r["shape"], r["mesh"]): r
+            for r in json.loads(path.read_text())["cells"]}
+
+
+def write_reference(jaxes: dict, path: Path) -> None:
+    cells = [reference(jaxes[k]) for k in sorted(jaxes)]
+    path.write_text(json.dumps({
+        "source": "python -m repro.launch.dryrun --all --mesh both "
+                  "(the JAX package's dry-run: HLO walk of each compiled "
+                  "cell on forced host devices), then "
+                  "scripts/torch_dryrun_vs_jax.py --write-reference",
+        "cells": cells}, indent=1) + "\n")
+
+
+def compare(port: dict, ref: dict) -> dict:
     """One cell: the numbers of the table and whether each bound holds."""
-    tp, tj = terms(port), terms(as_port_record(jax))
-    ratio = port["flops_per_device"] / max(jax["hlo_flops_per_device"], 1.0)
+    tp = terms(port)
+    ratio = port["flops_per_device"] / max(ref["flops_per_device"], 1.0)
     flops_ok, coll_ok = within_reference(
         port["flops_per_device"], tp["collective_s"],
-        jax["hlo_flops_per_device"], tj["collective_s"])
+        ref["flops_per_device"], ref["collective_s"])
     views = port.get("replicated", {}).get("aten.view.default", 0)
     return {"port_flops": port["flops_per_device"],
-            "jax_flops": jax["hlo_flops_per_device"], "ratio": ratio,
+            "jax_flops": ref["flops_per_device"], "ratio": ratio,
             "bytes_ratio": port["bytes_per_device"]
-            / max(jax["hlo_bytes_per_device"], 1.0),
+            / max(ref["bytes_per_device"], 1.0),
             "port_coll_s": tp["collective_s"],
-            "jax_coll_s": tj["collective_s"],
+            "jax_coll_s": ref["collective_s"],
             "views": views, "replicated": port.get("replicated", {}),
-            "port_bound": tp["bound"], "jax_bound": tj["bound"],
+            "port_bound": tp["bound"], "jax_bound": ref["bound"],
             "flops_ok": flops_ok, "coll_ok": coll_ok,
             "views_ok": views == 0 or port["arch"] not in DENSE}
 
@@ -84,8 +120,8 @@ def compare(port: dict, jax: dict) -> dict:
 def table(ports: dict, jaxes: dict, everything: bool) -> tuple:
     rows = ["| arch | shape | mesh | port FLOP/dev | JAX FLOP/dev | "
             "port / JAX | port coll s | JAX coll s | replicated | "
-            "bound port / JAX | bytes/dev port / JAX |",
-            "|---|---|---|---|---|---|---|---|---|---|---|"]
+            "bound port / JAX | bytes/dev port / JAX | torch |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     misses, both = [], 0
     for key in sorted(set(ports) & set(jaxes)):
         port, jax = ports[key], jaxes[key]
@@ -107,8 +143,38 @@ def table(ports: dict, jaxes: dict, everything: bool) -> tuple:
             f"{'' if c['coll_ok'] else ' !'} | {c['jax_coll_s']:.4g} | "
             f"{rep or '—'}{'' if c['views_ok'] else ' !'} | "
             f"{c['port_bound']} / {c['jax_bound']} | "
-            f"{c['bytes_ratio']:.2f} |")
+            f"{c['bytes_ratio']:.2f} | "
+            f"{port.get('torch_version', '?')} |")
     return "\n".join(rows), misses, both
+
+
+def beside(ports: dict, others: dict, jaxes: dict) -> str:
+    """Each cell ``ok`` in both runs of the port and in JAX's: FLOPs and
+    bytes per device and the collective term over JAX's, and the trace
+    seconds, of ``ports`` beside ``others`` (two torch versions, say)."""
+    def version(recs):
+        return ", ".join(sorted({r.get("torch_version", "?")
+                                 for r in recs.values()
+                                 if r["status"] == "ok"}))
+    rows = [f"A: torch {version(ports)}; B: torch {version(others)}", "",
+            "| arch | shape | mesh | FLOP/dev port / JAX, A; B | "
+            "bytes/dev port / JAX, A; B | coll s port / JAX, A; B | "
+            "trace s, A; B |",
+            "|---|---|---|---|---|---|---|"]
+    for key in sorted(set(ports) & set(others) & set(jaxes)):
+        recs = (ports[key], others[key])
+        ref = jaxes[key]
+        if ref["status"] != "ok" or any(r["status"] != "ok" for r in recs):
+            continue
+        flops, nbytes = ("; ".join(f"{r[k] / ref[k]:.4f}" for r in recs)
+                         for k in ("flops_per_device", "bytes_per_device"))
+        coll = "; ".join(
+            f"{terms(r)['collective_s'] / ref['collective_s']:.2f}"
+            for r in recs)
+        trace = "; ".join(f"{r['trace_s']:g}" for r in recs)
+        rows.append(f"| {key[0]} | {key[1]} | {key[2]} | {flops} | "
+                    f"{nbytes} | {coll} | {trace} |")
+    return "\n".join(rows)
 
 
 def roofline(ports: dict, jaxes: dict) -> str:
@@ -118,8 +184,8 @@ def roofline(ports: dict, jaxes: dict) -> str:
         jax = jaxes.get((rec["arch"], rec["shape"], rec["mesh"]), {})
         if rec["status"] != "ok" or jax.get("status") != "ok":
             return "—"
-        flops = rec["flops_per_device"] / jax["hlo_flops_per_device"]
-        nbytes = rec["bytes_per_device"] / jax["hlo_bytes_per_device"]
+        flops = rec["flops_per_device"] / jax["flops_per_device"]
+        nbytes = rec["bytes_per_device"] / jax["bytes_per_device"]
         return f"{flops:.2f}, {nbytes:.2f}"
     out = []
     for mesh in ("pod", "multipod"):
@@ -132,20 +198,41 @@ def roofline(ports: dict, jaxes: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jax", type=Path, default=ROOT / "artifacts" / "dryrun")
+    ap.add_argument("--reference", type=Path,
+                    help="JAX's side from this table, not from --jax")
+    ap.add_argument("--write-reference", type=Path,
+                    help="write the table of --jax's artifacts here, "
+                         "then exit")
     ap.add_argument("--torch", type=Path,
                     default=ROOT / "artifacts" / "dryrun_torch")
     ap.add_argument("--all", action="store_true",
                     help="list every cell, not only those that miss")
+    ap.add_argument("--beside", type=Path,
+                    help="print the port's ratios to JAX's beside those of "
+                         "the port's artifacts in this directory")
     ap.add_argument("--roofline", action="store_true",
                     help="print the port's roofline table of both meshes")
     args = ap.parse_args(argv)
-    ports, jaxes = load(args.torch), load(args.jax)
+    if args.write_reference:
+        jaxes = load(args.jax)
+        if not jaxes:
+            print(f"no artifacts in {args.jax}", file=sys.stderr)
+            return 2
+        write_reference(jaxes, args.write_reference)
+        print(f"{len(jaxes)} cells written to {args.write_reference}")
+        return 0
+    ports = load(args.torch)
+    jaxes = load_reference(args.reference) if args.reference else {
+        k: reference(r) for k, r in load(args.jax).items()}
     if not ports or not jaxes:
         print(f"no artifacts in {args.torch if not ports else args.jax}",
               file=sys.stderr)
         return 2
     if args.roofline:
         print(roofline(ports, jaxes))
+        return 0
+    if args.beside:
+        print(beside(ports, load(args.beside), jaxes))
         return 0
     text, misses, both = table(ports, jaxes, args.all)
     print(text)

@@ -29,12 +29,17 @@ The record has the JAX record's keys, with these changes:
     on replicated operands, with its count (their collectives are in
     ``collectives``);
   * ``trace_s`` replaces ``lower_s``/``compile_s``, and there is no
-    ``hlo_bytes``.
+    ``hlo_bytes``;
+  * ``torch_version``: the torch that traced the cell (DTensor's choice
+    of strategy, and so the counts, can differ between versions).
 ``--reanalyze`` has no counterpart: there is no stored HLO to walk again.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh both [--force]
+      [--jobs N]
+``--jobs N`` runs each cell in a process of its own, N at a time, the
+xLSTM cells first (their time loops take longest to trace).
 Artifacts land in artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json and
 are skipped if present (delete or --force to redo); the roofline table is
 made from them by `repro_torch.roofline.report`.
@@ -245,6 +250,7 @@ def analyze_cell(arch: str, shape_name, mesh, hyper=None,
     rec = dict(meta)
     rec.update({
         "status": "ok",
+        "torch_version": torch.__version__,
         "chips": mesh_devices(mesh),
         "trace_s": round(time.time() - t0, 2),
         "memory": _memory(args, out, ana.peak_bytes),
@@ -290,7 +296,8 @@ def _finish(record, save, verbose):
         extra = ""
         if s == "ok":
             extra = (f" flops/dev={record['flops_per_device']:.3e}"
-                     f" trace={record['trace_s']:.0f}s")
+                     f" trace={record['trace_s']:.0f}s"
+                     f" torch={record['torch_version']}")
             if record["replicated"]:
                 extra += f" replicated={record['replicated']}"
         elif s == "error":
@@ -304,6 +311,31 @@ def artifact_path(arch, shape_name, mesh_name) -> Path:
     return ARTIFACT_DIR / f"{arch}__{shape_name}__{mesh_name}.json"
 
 
+def run_apart(cells, jobs: int) -> int:
+    """Each (arch, shape, multi_pod) of ``cells`` through this module's
+    command line in a process of its own, ``jobs`` at a time; prints each
+    cell's line as it ends and returns the number that failed."""
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(cell):
+        arch, shape, multi = cell
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "multi" if multi else
+             "single", "--force"], capture_output=True, text=True)
+        lines = out.stdout.strip().splitlines()
+        print(lines[-1] if lines else f"[dryrun] {arch} × {shape}: rc "
+              f"{out.returncode}\n{out.stderr[-2000:]}", flush=True)
+        return out.returncode != 0
+
+    order = sorted(cells, key=lambda c: (c[0] != "xlstm-1.3b",
+                                         list(SHAPES).index(c[1])))
+    with ThreadPoolExecutor(jobs) as pool:
+        return sum(pool.map(one, order))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS)
@@ -312,6 +344,9 @@ def main():
                     default="single")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run in processes of their own, this many "
+                         "at a time")
     args = ap.parse_args()
 
     meshes = {"single": [False], "multi": [True],
@@ -319,7 +354,7 @@ def main():
     archs = ARCHS if args.all or not args.arch else [args.arch]
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
 
-    failures = 0
+    todo = []
     for multi in meshes:
         mname = "multipod" if multi else "pod"
         for arch in archs:
@@ -331,8 +366,12 @@ def main():
                         print(f"[dryrun] cached {p.name}: "
                               f"{rec['status']}", flush=True)
                         continue
-                rec = run_cell(arch, shape, multi)
-                failures += rec["status"] == "error"
+                todo.append((arch, shape, multi))
+    if args.jobs > 1:
+        failures = run_apart(todo, args.jobs)
+    else:
+        failures = sum(run_cell(*cell)["status"] == "error"
+                       for cell in todo)
     raise SystemExit(1 if failures else 0)
 
 

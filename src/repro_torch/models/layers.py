@@ -478,10 +478,27 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
 
     On a mesh the capacity, slots and drops are those of the call's
     global tokens, as in JAX; the flattened tokens and the output keep
-    the batch's placements (their gradients too), and the dispatch and
-    the combine run per shard (`_dispatch`, `_combine`): DTensor's
-    strategies for these gathers and scatters differ between torch
-    versions and fail in some."""
+    the batch's placements (their gradients too), and the dispatch, the
+    expert products and the combine run per shard (`_dispatch`,
+    `_expert_ffn`, `_combine`): DTensor's strategies for these gathers,
+    scatters and batched products differ between torch versions, and
+    fail in some or compute whole on every rank in others.
+
+    The expert products on a mesh.  The dispatch buffer is held at
+    ("experts", None, "act_embed"), as in JAX: its experts split over the
+    model axis, its capacity and d whole on every other mesh dim; the
+    weights [experts, d, mlp] / [experts, mlp, d] are split the same way
+    over their experts and over "data" on d (FSDP).  Each rank takes its
+    slice of the capacity over every mesh dim that does not split the
+    experts (a slice of a replicated buffer: no communication) and the
+    whole d of its experts' weights (gathered over "data"), so the
+    products contract nothing that is split: each rank computes its
+    experts × its capacity slice, an even share, and no output is a
+    partial sum.  The result is gathered back over the capacity.  In
+    backward the weights' gradients are partial sums over the capacity
+    slices, reduced onto their FSDP shards, and the buffer's gradient is
+    gathered over them.  The capacity need not divide evenly (a decode
+    step's few slots over 16 ranks)."""
     m = cfg.moe
     dt = to_dtype(cfg.compute_dtype)
     y = rms_norm(x, params["ln"], cfg.norm_eps)
@@ -510,10 +527,12 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
         functools.partial(_dispatch, k=m.top_k, capacity=capacity, dt=dt),
         (flat, e_idx, s_idx, experts), (tok, tok, tok, exp), (by_tok,)))
     expert_in = lc(expert_in, ("experts", None, "act_embed"), rules)
-    h = F.silu(torch.bmm(expert_in, cast(params["w_gate"], dt))) \
-        * torch.bmm(expert_in, cast(params["w_up"], dt))
-    expert_out = lc(torch.bmm(h, cast(params["w_down"], dt)),
-                    ("experts", None, "act_embed"), rules)
+    ffn_pl, w_pl = _ffn_shards(expert_in)
+    expert_out = lc(map_shards(
+        _expert_ffn, (expert_in, *(cast(params[n], dt) for n in
+                                   ("w_gate", "w_up", "w_down"))),
+        (ffn_pl, w_pl, w_pl, w_pl), (ffn_pl,), (expert_in.shape,)),
+        ("experts", None, "act_embed"), rules)
     out = _unstack(map_shards(
         functools.partial(_combine, k=m.top_k, dt=dt),
         (expert_out, e_idx, s_idx, top_p.reshape(-1), experts),
@@ -543,6 +562,25 @@ def _moe_shards(flat, e_pad: int, rules):
                 Shard(1) if b != Replicate() else Replicate()
                 for a, b in zip(first, second)]
     return experts, tok, exp, stacked(tok, exp), stacked(exp, tok)
+
+
+def _ffn_shards(expert_in):
+    """The placements of `_expert_ffn`'s buffer (and output) and of its
+    weights: the experts split as ``expert_in``'s, the capacity over
+    every other mesh dim, the weights whole but for their experts.  None
+    without a mesh."""
+    if not isinstance(expert_in, DTensor):
+        return None, None
+    experts = [p == Shard(0) for p in expert_in.placements]
+    return ([Shard(0) if e else Shard(1) for e in experts],
+            [Shard(0) if e else Replicate() for e in experts])
+
+
+def _expert_ffn(x, w_gate, w_up, w_down):
+    """The experts' SwiGLU, batched over the experts: x [experts, slots,
+    d] → [experts, slots, d]."""
+    return torch.bmm(F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up),
+                     w_down)
 
 
 def _unstack(x: torch.Tensor) -> torch.Tensor:

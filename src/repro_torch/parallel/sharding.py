@@ -210,7 +210,7 @@ def shard_share() -> int:
     return _SHARES[-1]
 
 
-def map_shards(fn, args, in_pl, out_pl):
+def map_shards(fn, args, in_pl, out_pl, out_shapes=None):
     """``fn(*args)`` run on each rank's shards as plain tensors, for work
     that is independent along every sharded dim (a recurrence over time
     per sequence and head, attention per query block and head):
@@ -221,6 +221,9 @@ def map_shards(fn, args, in_pl, out_pl):
     passed as it is) and handed to ``fn`` as its local shard.  The output
     tensors (a tensor or a tuple, nested or not) come back as DTensors
     placed by ``out_pl``, one entry per output tensor in flattened order.
+    ``out_shapes`` gives their global shapes in the same order, for
+    outputs whose sharded dims need not split evenly (by default each
+    global shape is the local one times the mesh dims that shard it).
     The gradient of an input replicated over a mesh dim that shards an
     output is a partial sum over it.  With no DTensor among ``args``, this
     is ``fn(*args)``."""
@@ -248,9 +251,16 @@ def map_shards(fn, args, in_pl, out_pl):
     finally:
         _SHARES.pop()
     pls = iter(out_pl)
-    return tree_unflatten(
-        [DTensor.from_local(t, mesh, tuple(next(pls)), run_check=False)
-         if isinstance(t, torch.Tensor) else t for t in leaves], spec)
+    shapes = iter(out_shapes or [None] * len(out_pl))
+
+    def placed(t):
+        shape = next(shapes)
+        stride = None if shape is None else \
+            torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(t, mesh, tuple(next(pls)), run_check=False,
+                                  shape=shape, stride=stride)
+    return tree_unflatten([placed(t) if isinstance(t, torch.Tensor) else t
+                           for t in leaves], spec)
 
 
 def map_shards_by_axes(fn, args, in_axes, out_axes, rules):
