@@ -162,7 +162,7 @@ import numpy as np
 import torch
 
 # the port of the checkout it is run from: its root is the working
-# directory (so scripts/chip_ab.py can run this script over another tree)
+# directory
 sys.path.insert(0, os.path.join(os.getcwd(), "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
@@ -682,9 +682,8 @@ def paged_kernel(gen: torch.Generator) -> dict:
         raise AssertionError("paged: 33 heads per kv head did not raise")
     # pool rows of D + 1 elements, which 16-byte copies cannot read: the
     # call is refused before any launch (this kernel) or agrees with the
-    # plain version (a kernel of scalar loads, as a parent tree's under
-    # scripts/chip_ab.py), never a wrong answer; the launches after it
-    # run clean
+    # plain version (a kernel of scalar loads, as an older tree's), never
+    # a wrong answer; the launches after it run clean
     q, k, v, tbl, lens = inputs([5, 9], torch.bfloat16, d=sv["d"] + 1)
     args = (q[..., :-1], k[..., :-1], v[..., :-1], tbl, lens)
     try:

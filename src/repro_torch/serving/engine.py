@@ -18,6 +18,12 @@ pool is ~0.94 GB, and a copy per write or per layer would dominate.
 On a CUDA device decode runs the CUDA paged-attention kernel and prefill
 runs the attention that ``attn_impl`` selects ("pallas": the CUDA flash
 kernel); on the CPU both take the kernels' plain versions.
+
+While a ``torch.profiler`` session records, each admission and decode step
+records its spans and counts (``repro_torch.trace``): ``engine.add`` (the
+prompt's tokens, those of a fork's shared prefix, and those the prefill
+ran through the forward) and ``engine.step`` (prepare, upload, forward,
+sync, post; the pool's pages in use).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models.common import resolve_device, to_dtype, tree_map
@@ -95,20 +102,22 @@ class Engine:
                                  f"than the prompt ({len(prompt)})")
         sid = self._next_id
         self._next_id += 1
-        if fork_from is not None:
-            self.cache.fork(fork_from, sid)
-            if shared % self.cfg.page_tokens:
-                # shared prefix ends mid-page: COW the open page so the
-                # suffix prefill cannot touch the parent's copy
-                self._cow_page(sid, shared // self.cfg.page_tokens)
-        else:
-            self.cache.create(sid)
-        req = Request(sid, prompt, max_new)
-        if len(prompt) > shared:
-            # the prefill's last-position logits ARE the first output token
-            req.out.append(self._run_prefill(sid, prompt, shared))
-            req.done = len(req.out) >= max_new
-        self._requests[sid] = req
+        with trace.span("engine.add", rid=sid, prompt_tokens=len(prompt),
+                        cached_tokens=shared, computed_tokens=0) as s:
+            if fork_from is not None:
+                self.cache.fork(fork_from, sid)
+                if shared % self.cfg.page_tokens:
+                    # shared prefix ends mid-page: COW the open page so the
+                    # suffix prefill cannot touch the parent's copy
+                    self._cow_page(sid, shared // self.cfg.page_tokens)
+            else:
+                self.cache.create(sid)
+            req = Request(sid, prompt, max_new)
+            if len(prompt) > shared:
+                # the prefill's last-position logits ARE the first output token
+                req.out.append(self._run_prefill(sid, prompt, shared, s))
+                req.done = len(req.out) >= max_new
+            self._requests[sid] = req
         return sid
 
     def _cow_page(self, sid: int, page_idx: int) -> None:
@@ -134,14 +143,15 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _run_prefill(self, sid: int, prompt: np.ndarray,
-                     start: int) -> int:
+    def _run_prefill(self, sid: int, prompt: np.ndarray, start: int,
+                     span=trace.OFF) -> int:
         n = len(prompt)
         self._ensure_pages(sid, n)
         table = np.asarray(self.cache.page_table[sid], np.int64)
+        tokens = self._tensor(np.asarray(prompt, np.int64)[None, :])
+        span["computed_tokens"] = tokens.shape[1]
         next_tok = _prefill_step(
-            self.params, self.k_pool, self.v_pool,
-            self._tensor(np.asarray(prompt, np.int64)[None, :]),
+            self.params, self.k_pool, self.v_pool, tokens,
             self._tensor(table[None, :]), start, self.scratch_page,
             cfg=self.mcfg, page_tokens=self.cfg.page_tokens)
         self.cache.seq_len[sid] = n
@@ -154,29 +164,39 @@ class Engine:
         active = [r for r in self._requests.values() if not r.done]
         if not active:
             return []
-        b = len(active)
-        t = self.cfg.page_tokens
-        tokens = np.zeros((b, 1), np.int64)
-        pos = np.zeros((b,), np.int64)
-        for i, r in enumerate(active):
-            tokens[i, 0] = r.out[-1]       # prefill seeded out[0]
-            pos[i] = self.cache.seq_len[r.seq_id]
-            self._ensure_pages(r.seq_id, int(pos[i]) + 1)
-            # COW before writing into a shared open page
-            self._cow_page(r.seq_id, int(pos[i]) // t)
-
-        tbl_arr, _ = self.cache.table_array([r.seq_id for r in active])
-        next_tok = _decode_step(
-            self.params, self.k_pool, self.v_pool, self._tensor(tokens),
-            self._tensor(pos), self._tensor(np.maximum(tbl_arr, 0)),
-            cfg=self.mcfg, page_tokens=t).cpu().numpy()
-        finished = []
-        for i, r in enumerate(active):
-            self.cache.seq_len[r.seq_id] += 1
-            r.out.append(int(next_tok[i]))
-            if len(r.out) >= r.max_new:
-                r.done = True
-                finished.append(r.seq_id)
+        with trace.span("engine.step") as s:
+            with trace.span("engine.step.prepare"):
+                b = len(active)
+                t = self.cfg.page_tokens
+                tokens = np.zeros((b, 1), np.int64)
+                pos = np.zeros((b,), np.int64)
+                for i, r in enumerate(active):
+                    tokens[i, 0] = r.out[-1]       # prefill seeded out[0]
+                    pos[i] = self.cache.seq_len[r.seq_id]
+                    self._ensure_pages(r.seq_id, int(pos[i]) + 1)
+                    # COW before writing into a shared open page
+                    self._cow_page(r.seq_id, int(pos[i]) // t)
+                tbl_arr, _ = self.cache.table_array(
+                    [r.seq_id for r in active])
+            with trace.span("engine.step.upload"):
+                inputs = (self._tensor(tokens), self._tensor(pos),
+                          self._tensor(np.maximum(tbl_arr, 0)))
+            with trace.span("engine.step.forward", device=True):
+                next_tok = _decode_step(self.params, self.k_pool,
+                                        self.v_pool, *inputs, cfg=self.mcfg,
+                                        page_tokens=t)
+            with trace.span("engine.step.sync"):
+                next_tok = next_tok.cpu().numpy()
+            with trace.span("engine.step.post"):
+                finished = []
+                for i, r in enumerate(active):
+                    self.cache.seq_len[r.seq_id] += 1
+                    r.out.append(int(next_tok[i]))
+                    if len(r.out) >= r.max_new:
+                        r.done = True
+                        finished.append(r.seq_id)
+            s["pages_in_use"] = self.cache.in_use()
+            s["pool_pages"] = self.cfg.num_pages
         return finished
 
     def result(self, sid: int) -> List[int]:

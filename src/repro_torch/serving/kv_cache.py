@@ -81,6 +81,10 @@ class PagedKVCache:
     def free_pages(self) -> int:
         return len(self._free)
 
+    def in_use(self) -> int:
+        """Pages held by some sequence (or reserved by the engine)."""
+        return self.stats["pages_allocated"] - self.stats["pages_freed"]
+
     # ------------------------------------------------------------- seq API
     def create(self, seq_id: int) -> None:
         if seq_id in self.page_table:

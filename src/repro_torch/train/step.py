@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Union
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import trace
 from ..models.common import resolve_device, tree_map
 from ..models.layers import cross_entropy
 from ..parallel.sharding import last_row, redistribute, whole_on
@@ -84,13 +85,19 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper(),
     loss_fn = make_loss_fn(model, rules)
     k = hyper.accum_steps
 
-    def single(params, batch):
+    def single(params, batch, into=None):
+        """One microbatch's loss and grads; ``into``: the leaves of a
+        gradient sum, to which its grads are added."""
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, parts = loss_fn(live, batch)
-        flat = opt.leaves(live)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
+        with trace.span("train.forward", device=True):
+            loss, parts = loss_fn(live, batch)
+        with trace.span("train.backward", device=True):
+            flat = opt.leaves(live)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, grads)]
+            for acc, g in zip(into or (), grads):
+                acc.add_(g)
         return (loss.detach(), {n: v.detach() for n, v in parts.items()},
                 opt.unflatten(params, grads))
 
@@ -108,13 +115,11 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper(),
         grads, loss = None, 0.0
         for i in range(k):
             mb_loss, _, mb_grads = single(params, {
-                n: microbatch(x, i) for n, x in batch.items()})
+                n: microbatch(x, i) for n, x in batch.items()},
+                into=None if grads is None else opt.leaves(grads))
             loss = loss + mb_loss
             if grads is None:
                 grads = mb_grads
-            else:
-                for acc, g in zip(opt.leaves(grads), opt.leaves(mb_grads)):
-                    acc.add_(g)
             del mb_grads
         for g in opt.leaves(grads):
             g.div_(k)
@@ -128,9 +133,12 @@ def make_train_step(model, hyper: TrainHyper = TrainHyper(),
     grad_fn = make_grad_fn(model, hyper, rules)
 
     def train_step(state, batch):
-        loss, parts, grads = grad_fn(state["params"], batch)
-        params, opt_state, om = opt.update(hyper.adamw, grads, state["opt"],
-                                           state["params"])
+        with trace.span("train.step", tokens=batch["tokens"].numel()):
+            loss, parts, grads = grad_fn(state["params"], batch)
+            with trace.span("train.optimizer", device=True):
+                params, opt_state, om = opt.update(hyper.adamw, grads,
+                                                   state["opt"],
+                                                   state["params"])
         metrics = {"loss": loss, **parts, **om}
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, metrics)
