@@ -32,9 +32,12 @@ Phases, one line each; a failing phase raises and nothing catches it:
    large for shared memory must fail to launch), and the times of kernel,
    plain version and (for flash) the PyTorch library call, with CUDA
    events, kernel and its yardstick timed in turns; paged also with the
-   serve run's shared-prefix table; flash also forward and backward at
-   the training shape (the op's backward recomputes through the plain
-   version) against the library call's.
+   serve run's shared-prefix table; the flash backward kernel (bf16 on
+   the card) against the plain fp32 recompute at the training shape, head
+   dims 32 and 128, non-causal, with windows and with Sq != Skv, each
+   call counted; one backward call at the training shape against the
+   library call's backward and the plain recompute, and forward and
+   backward of the op against the library call's.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -111,14 +114,16 @@ Phases, one line each; a failing phase raises and nothing catches it:
    2-replica cluster in a temporary directory.  20 steps through the
    port's ``Trainer`` with a checkpoint at 20, then a fresh trainer
    restores step 20 (state bit for bit, data cursor) and trains to 24.
-   Flash launches must be 32 × 2 × 24; the loss must fall.
+   Flash launches, forward and backward kernel each, must be 32 × 2 × 24;
+   the loss must fall.
 9. pod_sync: two processes share the card over gloo, one pod each of a
    ("pod",) mesh of 2; each trains smollm-360m as the train phase does
    (batch 8 × 2048 in 2 microbatches, its own WTF cluster, host ``rank``
    of a pipeline of global batch 16) for 4 steps, with the int8
    ``make_pod_sync`` every 2.  After each sync both ranks' params must be
    bit-identical and every leaf within one int8 step of the fp32 mean of
-   the pre-sync params; each process must launch flash 32 × 2 × 4 times.
+   the pre-sync params; each process must launch the flash forward and
+   backward kernels 32 × 2 × 4 times each.
    The sync's ms, the int8 bytes per sync, the peak memory per process
    and whether gloo's all-gather takes CUDA tensors are printed.
 10. dryrun: ``repro_torch.launch.dryrun`` in subprocesses (no card, a
@@ -182,10 +187,18 @@ FLASH_SHAPE = dict(b=1, h=28, hkv=4, d=128)       # qwen2-7b prefill
 Z_FLASH_SHAPE = dict(b=4, s=4096, h=32, hkv=32, d=64)   # zamba2 prefill
 PAGED_SHAPE = dict(b=8, h=28, hkv=4, d=128, t=16, pages=2048)
 SSD_SHAPE = dict(b=4, s=4096, h=64, p=64, n=64, chunk=128)  # zamba2 prefill
-KERNEL_LIBS = ["flash_attention", "paged_attention", "mamba2_scan"]
-PORT_KERNELS = ("flash_bf16", "flash_fp32", "paged_fwd", "paged_merge",
-                "chunk_states", "state_pass", "chunk_outputs")
+KERNEL_LIBS = ["flash_attention", "flash_attention_bwd", "paged_attention",
+               "mamba2_scan"]
+PORT_KERNELS = ("flash_bf16", "flash_fp32", "flash_bwd", "paged_fwd",
+                "paged_merge", "chunk_states", "state_pass", "chunk_outputs")
 TRAIN_FLASH_SHAPE = dict(b=4, s=2048, h=15, hkv=5, d=64)  # smollm train
+# the flash backward kernel against the fp32 plain recompute: the norm of
+# the difference over the reference's norm, and the largest difference over
+# the reference's largest entry.  The kernel rounds P and dS to bf16 for
+# its products (2^-9 relative each) and adds dQ's tiles in another order
+# (fp32); 2e-2 leaves ~5 x room above the 2.5-4.1e-3 that rounding gives
+# on an H100
+FLASH_BWD_TOL = 2e-2
 MOE_FLASH_SHAPE = dict(b=4, s=4096, h=16, hkv=16, d=128)  # olmoe prefill
 # command-r at a 2048-token prompt; llava: 576 patches + 64 text tokens
 CMDR_FLASH_SHAPE = dict(b=1, s=2048, h=64, hkv=8, d=128)
@@ -554,6 +567,17 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")},
             "shapes": flash_shapes},
+        "flash_attention_bwd": {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none (the JAX op differentiates its plain version)",
+            "max_rel_err": train_fb["bwd_max_rel_err"],
+            "ms": train_fb["bwd_ms"], "plain_ms": train_fb["bwd_plain_ms"],
+            "library_ms": train_fb["bwd_library_ms"],
+            "bound_ms": train_fb["bwd_bound_ms"],
+            "bound_by": train_fb["bwd_bound_by"],
+            "shape": f"B={ts['b']} S={ts['s']} H={ts['h']} Hkv={ts['hkv']} "
+                     f"D={ts['d']} causal bf16"},
     }
     kernels["paged_attention"] = paged_kernel(gen)
     kernels["mamba2_scan"] = ssd_kernel(gen)
@@ -565,38 +589,121 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
 
 def flash_train_times(gen: torch.Generator) -> dict:
-    """Forward and backward of the flash op at smollm-360m's training
-    microbatch (the kernel forward, the plain recompute backward) and of
-    the library call, in turns: the attention cost of one layer's
-    microbatch in the train step."""
+    """The flash op's backward: its gradients through the kernel held
+    against the plain fp32 recompute at smollm-360m's training microbatch,
+    at head dims 32 and 128, non-causal, with a window and with Sq != Skv;
+    then, at the microbatch, one backward call of the kernel (from the
+    forward's saved log-sum-exp), the library call's backward and the plain
+    recompute (called directly: the op's backward before the kernel), and
+    forward and backward of the op and of the library call, in turns; and
+    the host time of one call of the backward's and the forward's
+    wrapper."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import attention_plain, \
+        flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fk
 
-    ts = TRAIN_FLASH_SHAPE
-
-    def rnd(h):
-        return torch.randn((ts["b"], ts["s"], h, ts["d"]), generator=gen,
+    def rnd(b, s, h, d):
+        return torch.randn((b, s, h, d), generator=gen,
                            device="cuda").to(torch.bfloat16)
 
-    q, k, v = rnd(ts["h"]), rnd(ts["hkv"]), rnd(ts["hkv"])
-    g = rnd(ts["h"])
-    for t in (q, k, v):
-        t.requires_grad_()
+    def plain_grads(q, k, v, g, **mask):
+        inputs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out = attention_plain(*inputs, **mask)
+        return torch.autograd.grad(out, inputs, g.float())
+
+    ts = TRAIN_FLASH_SHAPE
+    checks = [dict(ts), dict(b=2, s=300, h=4, hkv=2, d=32),
+              dict(b=1, s=576, h=28, hkv=4, d=128),
+              dict(b=1, s=1500, h=16, hkv=4, d=64, causal=False),
+              dict(b=1, s=576, h=28, hkv=4, d=128, window=128),
+              dict(b=2, s=300, h=6, hkv=2, d=64, window=100),
+              dict(b=1, s=77, sq=200, h=4, hkv=2, d=64),
+              dict(b=1, s=300, sq=77, h=4, hkv=2, d=64, causal=False)]
+    launches0, errs = fk.bwd_launches, {}
+    for c in checks:
+        mask = dict(causal=c.get("causal", True),
+                    sliding_window=c.get("window"))
+        q = rnd(c["b"], c.get("sq", c["s"]), c["h"], c["d"])
+        k, v = rnd(c["b"], c["s"], c["hkv"], c["d"]), \
+            rnd(c["b"], c["s"], c["hkv"], c["d"])
+        g = rnd(c["b"], c.get("sq", c["s"]), c["h"], c["d"])
+        inputs = [t.requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*inputs, **mask), inputs,
+                                  g)
+        torch.cuda.synchronize()
+        what = f"flash bwd B={c['b']} Sq={c.get('sq', c['s'])} " \
+               f"Skv={c['s']} H={c['h']}/{c['hkv']} D={c['d']} " \
+               f"causal={mask['causal']} window={mask['sliding_window']}"
+        worst = 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), got,
+                              plain_grads(q, k, v, g, **mask)):
+            a = a.float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{what}: non-finite {name}")
+            by_norm = ((a - r).norm() / r.norm()).item()
+            by_max = ((a - r).abs().max() / r.abs().max()).item()
+            if max(by_norm, by_max) > FLASH_BWD_TOL:
+                raise AssertionError(
+                    f"{what}: {name} differs from the plain recompute by "
+                    f"{by_norm:.3e} of its norm, {by_max:.3e} of its "
+                    f"largest entry (tolerance {FLASH_BWD_TOL})")
+            worst = max(worst, by_norm, by_max)
+        errs[what] = worst
+        log("kernels", kernel="flash_attention_bwd", case=repr(what),
+            rel_err=f"{worst:.3e}")
+        del q, k, v, g, inputs, got
+    if fk.bwd_launches - launches0 != len(checks):
+        raise AssertionError(f"flash bwd: {fk.bwd_launches - launches0} "
+                             f"kernel calls for {len(checks)} backwards")
+
+    b, s, h, hkv, d = (ts[x] for x in ("b", "s", "h", "hkv", "d"))
+    q, k, v, g = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, h, d)
+    out, lse = fk.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     gt = g.transpose(1, 2)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    qi, ki, vi = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
     def op():
-        out = flash_attention(q, k, v, causal=True)
-        torch.autograd.grad(out, (q, k, v), g)
+        torch.autograd.grad(flash_attention(qi, ki, vi, causal=True),
+                            (qi, ki, vi), g)
 
     def library():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (qt, kt, vt), gt)
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), gt)
 
-    ms = cuda_ms_turns({"op": op, "library": library}, rounds=4)
-    return {"fwd_bwd_ms": ms["op"], "library_fwd_bwd_ms": ms["library"]}
+    launches0 = fk.bwd_launches
+    ms = cuda_ms_turns({
+        "bwd": lambda: fk.flash_attention_bwd(q, k, v, out, lse, g),
+        "library_bwd": lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True),
+        "op": op, "library": library}, rounds=6)
+    calls = fk.bwd_launches - launches0
+    plain = cuda_ms(lambda: plain_grads(q, k, v, g, causal=True), 5, 1)
+    # the five products (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) over the visible
+    # pairs; q, out, dout, dq, k, v, dk and dv once
+    flops = 10 * d * b * h * (s * (s + 1) // 2)
+    nbytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d)
+    t_bound, by = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
+    if calls != 2 * (2 + 6):     # warm-up and rounds of "bwd" and "op"
+        raise AssertionError(f"flash bwd: {calls} kernel calls in the "
+                             "timing, not 16")
+    # what the host pays for one call of each wrapper, checks, tensor maps
+    # and allocations included
+    host = {"bwd_host_us": host_us(
+                lambda: fk.flash_attention_bwd(q, k, v, out, lse, g), 50),
+            "fwd_lse_host_us": host_us(
+                lambda: fk.flash_attention_fwd(q, k, v, causal=True,
+                                               return_lse=True), 50)}
+    return {**host,"fwd_bwd_ms": ms["op"], "library_fwd_bwd_ms": ms["library"],
+            "bwd_ms": ms["bwd"], "bwd_library_ms": ms["library_bwd"],
+            "bwd_plain_ms": plain, "bwd_bound_ms": t_bound,
+            "bwd_bound_by": by, "bwd_flops": flops, "bwd_bytes": nbytes,
+            "bwd_max_rel_err": max(errs.values())}
 
 
 def paged_kernel(gen: torch.Generator) -> dict:
@@ -2274,18 +2381,20 @@ def phase_train(profile: bool = False) -> dict:
                 device="cuda")
 
         torch.cuda.reset_peak_memory_stats()
-        fk.launches = 0
+        fk.launches = fk.bwd_launches = 0
         first = trainer(TRAIN_STEPS)
         out1 = first.run()
         peak = torch.cuda.max_memory_allocated()
         second = trainer(TRAIN_RESTART_STEPS)
         second.expect = first.saved
         out2 = second.run()
-        launches = {"flash_attention": fk.launches}
+        launches = {"flash_attention": fk.launches,
+                    "flash_attention_bwd": fk.bwd_launches}
         manifest = second.ckpt.read_manifest()
 
+        # every layer of every microbatch, forward and backward
         want = cfg.n_layers * TRAIN_ACCUM * TRAIN_RESTART_STEPS
-        if launches["flash_attention"] != want:
+        if launches != {"flash_attention": want, "flash_attention_bwd": want}:
             raise AssertionError(f"flash launches {launches}, want {want}")
         hist = out1["history"] + out2["history"]
         losses = {int(h["step"]): h["loss"] for h in hist}
@@ -2458,12 +2567,13 @@ def pod_sync_worker(rank: int, store: str, out_path: str) -> None:
                               log_every=1, pod_sync_every=POD_SYNC_EVERY),
             pod_sync=observed_sync, device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        fk.launches = 0
+        fk.launches = fk.bwd_launches = 0
         out = trainer.run()
-        launches = fk.launches
+        launches = {"flash_attention": fk.launches,
+                    "flash_attention_bwd": fk.bwd_launches}
         leaves = flatten_tree(model.abstract_params()).values()
         result = {
-            "rank": rank, "launches": {"flash_attention": launches},
+            "rank": rank, "launches": launches,
             "step_ms": [1e3 / h["steps_per_s"] for h in out["history"]],
             "losses": [h["loss"] for h in out["history"]],
             "syncs": syncs, "int8_bytes": sum(t.numel() for t in leaves),
@@ -2485,7 +2595,8 @@ def phase_pod_sync() -> dict:
     POD_STEPS steps with the int8 pod sync every POD_SYNC_EVERY steps
     (`pod_sync_worker`).  Each sync must leave both ranks bit-identical and
     every leaf within one int8 step of the fp32 mean; each process must
-    launch flash on every layer of every microbatch."""
+    launch flash, forward and backward, on every layer of every
+    microbatch."""
     import shutil
     import tempfile
     work = tempfile.mkdtemp(prefix="pod_sync_")
@@ -2511,7 +2622,8 @@ def phase_pod_sync() -> dict:
     from repro_torch.configs import get_config
     want = get_config("smollm-360m").n_layers * TRAIN_ACCUM * POD_STEPS
     for r in res:
-        if r["launches"]["flash_attention"] != want:
+        if r["launches"] != {"flash_attention": want,
+                             "flash_attention_bwd": want}:
             raise AssertionError(f"rank {r['rank']} flash launches "
                                  f"{r['launches']}, want {want}")
         if len(r["syncs"]) != POD_STEPS // POD_SYNC_EVERY:
@@ -2534,7 +2646,7 @@ def phase_pod_sync() -> dict:
             same_bits=[sy["same_bits"] for sy in r["syncs"]],
             worst_err_in_int8_steps=[round(sy["worst_err_over_step"], 4)
                                      for sy in r["syncs"]],
-            flash_launches=r["launches"]["flash_attention"],
+            flash_launches=r["launches"],
             peak_gb=f"{r['peak_gb']:.3f}",
             losses=[round(x, 5) for x in r["losses"]])
     log("pod_sync", int8_bytes_per_sync=r0["int8_bytes"],
@@ -2542,8 +2654,8 @@ def phase_pod_sync() -> dict:
         step_ms_two_processes_sharing_one_card=[
             [round(x, 1) for x in r["step_ms"]] for r in res],
         note="not a speed figure: two processes share one card")
-    return {"flash_attention": sum(r["launches"]["flash_attention"]
-                                   for r in res)}
+    return {name: sum(r["launches"][name] for r in res)
+            for name in ("flash_attention", "flash_attention_bwd")}
 
 
 DRYRUN_ONE_DEVICE = """

@@ -37,6 +37,10 @@
 //    domain: each thread holds two rows' entries; row maxima combine over
 //    the quad of lanes that share a row, row sums are reduced once at the
 //    end.
+//  * Given an `lse` pointer (only when a gradient will be asked for), the
+//    epilogue also stores each row's log-sum-exp, m + log2(l) taken back
+//    to base e, for the backward kernel (flash_attention_bwd.cu); 4 bytes
+//    a row against the output's 2·D.  Null costs a branch per row.
 //
 // fp32 inputs take `flash_fp32`, FMAs out of shared memory: a dtype
 // dispatch inside this library, not a fallback.  Only the fp32 parity
@@ -48,12 +52,11 @@
 
 namespace {
 
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
+using hopper::LOG2E;
+using hopper::Strides4;
 
-struct Strides4 {
-  long long b, s, h, d;
-};
+constexpr float NEG = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -89,8 +92,9 @@ __global__ void __launch_bounds__(256, 2)
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv,
-           __nv_bfloat16* __restrict__ o, Strides4 os, int group, int Sq,
-           int Skv, int causal, int window, float sl2) {
+           __nv_bfloat16* __restrict__ o, Strides4 os,
+           float* __restrict__ lse, int group, int Sq, int Skv, int causal,
+           int window, float sl2) {
   using C = Bf16Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, SWB = C::SWB, SWE = C::SWE;
   extern __shared__ unsigned char smem_raw[];
@@ -258,6 +262,12 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // the row's log-sum-exp of the scaled logits, natural base; a row with
+    // no visible key stores +inf, so exp(logit - lse) gives it weight 0
+    const int qi = row0 + 8 * r;
+    if (lse && lane % 4 == 0 && qi < Sq)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qi] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : INFINITY;
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -276,43 +286,28 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* o, const Strides4& qs, const Strides4& ks,
-                        const Strides4& vs, const Strides4& os, int B, int H,
+                        void* o, float* lse, const Strides4& qs,
+                        const Strides4& ks, const Strides4& vs,
+                        const Strides4& os, int B, int H,
                         int Hkv, int Sq, int Skv, int causal, int window,
                         float scale, int block_q, int block_k,
                         cudaStream_t stream) {
   using C = Bf16Cfg<D>;
   if (block_q != C::BQ || block_k != C::BK) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
-  const void* bases[3] = {q, k, v};
-  const Strides4* st[3] = {&qs, &ks, &vs};
-  const int heads[3] = {H, Hkv, Hkv}, seqs[3] = {Sq, Skv, Skv};
-  const int rows[3] = {C::BQ, C::BK, C::BK};
-  for (int i = 0; i < 3; ++i) {
-    if (st[i]->d != 1) return cudaErrorInvalidValue;
-    const uint64_t dims[4] = {static_cast<uint64_t>(D),
-                              static_cast<uint64_t>(heads[i]),
-                              static_cast<uint64_t>(seqs[i]),
-                              static_cast<uint64_t>(B)};
-    uint64_t strides[3] = {static_cast<uint64_t>(st[i]->h) * 2,
-                           static_cast<uint64_t>(st[i]->s) * 2,
-                           static_cast<uint64_t>(st[i]->b) * 2};
-    // a dimension of size 1 may carry any stride in PyTorch; TMA wants a
-    // legal one, and never steps along it
-    for (int j = 0; j < 3; ++j)
-      if (dims[j + 1] == 1) strides[j] = (j ? strides[j - 1] : 2) * dims[j];
-    const uint32_t box[4] = {static_cast<uint32_t>(C::SWE), 1,
-                             static_cast<uint32_t>(rows[i]), 1};
-    if (!hopper::encode_bf16_4d(maps + i, bases[i], dims, strides, box,
+  if (!hopper::encode_bshd_bf16(maps, q, qs, B, Sq, H, D, C::BQ, C::SWB) ||
+      !hopper::encode_bshd_bf16(maps + 1, k, ks, B, Skv, Hkv, D, C::BK,
+                                C::SWB) ||
+      !hopper::encode_bshd_bf16(maps + 2, v, vs, B, Skv, Hkv, D, C::BK,
                                 C::SWB))
-      return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_bf16<D>), C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
   flash_bf16<D><<<grid, C::THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), os,
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), os, lse,
       H / Hkv, Sq, Skv, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -483,9 +478,10 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
   if (block_q != F_BQ || block_k != F_BK) return cudaErrorInvalidValue;
   const size_t smem = fp32_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_fp32<D>), static_cast<int>(smem),
+      smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
   flash_fp32<D><<<grid, F_THREADS, smem, stream>>>(
@@ -503,35 +499,38 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, in the
-// [B, S, H, D] order of each tensor; bf16 views need a unit last stride
-// and 16-byte aligned base and strides (TMA).  window <= 0 means no
-// window.  block_q / block_k are the caller's plan and must be the tiles
-// this library was built with for (dtype, D).
+// dtype: 0 = float32, 1 = bfloat16.  lse, when not null (bf16 only),
+// receives each row's log-sum-exp of the scaled logits as fp32 [B, H, Sq]
+// (natural base, +inf where no key is visible), for the backward.
+// Strides are in elements, in the [B, S, H, D] order of each tensor; bf16
+// views need a unit last stride and 16-byte aligned base and strides
+// (TMA).  window <= 0 means no window.  block_q / block_k are the caller's
+// plan and must be the tiles this library was built with for (dtype, D).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* o, int dtype, int B, int H, int Hkv, int Sq,
-                        int Skv, int D, long long qsb, long long qss,
-                        long long qsh, long long qsd, long long ksb,
-                        long long kss, long long ksh, long long ksd,
-                        long long vsb, long long vss, long long vsh,
-                        long long vsd, long long osb, long long oss,
-                        long long osh, long long osd, int causal, int window,
-                        float scale, int block_q, int block_k, void* stream) {
+                        void* o, float* lse, int dtype, int B, int H,
+                        int Hkv, int Sq, int Skv, int D, long long qsb,
+                        long long qss, long long qsh, long long qsd,
+                        long long ksb, long long kss, long long ksh,
+                        long long ksd, long long vsb, long long vss,
+                        long long vsh, long long vsd, long long osb,
+                        long long oss, long long osh, long long osd,
+                        int causal, int window, float scale, int block_q,
+                        int block_k, void* stream) {
   const Strides4 qs{qsb, qss, qsh, qsd}, ks{ksb, kss, ksh, ksd},
       vs{vsb, vss, vsh, vsd}, os{osb, oss, osh, osd};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS                                                       \
-  q, k, v, o, qs, ks, vs, os, B, H, Hkv, Sq, Skv, causal, window, scale, \
-      block_q, block_k, st
+#define FLASH_ARGS                                                     \
+  qs, ks, vs, os, B, H, Hkv, Sq, Skv, causal, window, scale, block_q, \
+      block_k, st
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (D == 32) err = launch_fp32<32>(FLASH_ARGS);
-    if (D == 64) err = launch_fp32<64>(FLASH_ARGS);
-    if (D == 128) err = launch_fp32<128>(FLASH_ARGS);
+  if (dtype == 0 && !lse) {
+    if (D == 32) err = launch_fp32<32>(q, k, v, o, FLASH_ARGS);
+    if (D == 64) err = launch_fp32<64>(q, k, v, o, FLASH_ARGS);
+    if (D == 128) err = launch_fp32<128>(q, k, v, o, FLASH_ARGS);
   } else if (dtype == 1) {
-    if (D == 32) err = launch_bf16<32>(FLASH_ARGS);
-    if (D == 64) err = launch_bf16<64>(FLASH_ARGS);
-    if (D == 128) err = launch_bf16<128>(FLASH_ARGS);
+    if (D == 32) err = launch_bf16<32>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 64) err = launch_bf16<64>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 128) err = launch_bf16<128>(q, k, v, o, lse, FLASH_ARGS);
   }
 #undef FLASH_ARGS
   return static_cast<int>(err);

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // 16-byte cp.async copies, ldmatrix and the bf16 mma.sync, programmatic
-// dependent launch, mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma instructions themselves, and the host-side
-// encoding of a TMA tensor map.
+// dependent launch, mbarriers, TMA tile loads, bulk copies and bulk
+// reduce-adds, the async-proxy fence, wgmma shared-memory descriptors and
+// the wgmma instructions themselves; on the host, the encoding of a TMA
+// tensor map (also over a [B, S, H, D] view) and a kernel's shared-memory
+// limit, raised once.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, a CUDA driver API
 // function, reached through the runtime's cudaGetDriverEntryPoint: the
@@ -14,9 +16,17 @@
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// element strides of a [B, S, H, D] view, in that order
+struct Strides4 {
+  long long b, s, h, d;
+};
 
 // ------------------------------------------------------------ device side
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -140,6 +150,47 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// bulk copy (no tensor map) of `bytes` contiguous bytes from global to
+// shared memory, completion counted on `bar`; both addresses and `bytes`
+// are multiples of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] for `bytes` / 4 floats, shared to global, done in L2 by
+// the bulk copy engine (an atomic add per element); tracked as a bulk group
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and finished writing global memory
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (all in 16-byte units) and the swizzle layout
 // (1 = 128-byte, 2 = 64-byte, 3 = 32-byte)
@@ -181,6 +232,58 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d);
+
+// D[64 x N] (+)= A[64 x 16] · B[16 x N]; A and B from shared memory, both
+// MN-major (transposed): A's rows and B's columns are contiguous
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d);
+
+template <> __device__ __forceinline__ void wgmma_ss_tt<16>(
+    float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss_tt<32>(
+    float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss_tt<64>(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <> __device__ __forceinline__ void wgmma_ss<64>(
     float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
@@ -305,6 +408,47 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a bf16 [B, S, H, D] view with element strides `st`
+// (st.d must be 1): boxes of one head's `swizzle_bytes` / 2 columns over
+// `rows` rows of S.  Returns false if the view cannot be mapped.
+inline bool encode_bshd_bf16(CUtensorMap* map, const void* base,
+                             const Strides4& st, int B, int S, int H, int D,
+                             int rows, int swizzle_bytes) {
+  if (st.d != 1) return false;
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  uint64_t strides[3] = {static_cast<uint64_t>(st.h) * 2,
+                         static_cast<uint64_t>(st.s) * 2,
+                         static_cast<uint64_t>(st.b) * 2};
+  // a dimension of size 1 may carry any stride in PyTorch; TMA wants a
+  // legal one, and never steps along it
+  for (int j = 0; j < 3; ++j)
+    if (dims[j + 1] == 1) strides[j] = (j ? strides[j - 1] : 2) * dims[j];
+  const uint32_t box[4] = {static_cast<uint32_t>(swizzle_bytes / 2), 1,
+                           static_cast<uint32_t>(rows), 1};
+  return encode_bf16_4d(map, base, dims, strides, box, swizzle_bytes);
+}
+
+// Raises `kernel`'s dynamic shared memory to `bytes` on the current device
+// unless `done` (a bit per device, one `done` per kernel) says it was:
+// the attribute holds for the process, so later launches skip the call.
+// Two threads may both set it; that is harmless.
+inline cudaError_t allow_smem(const void* kernel, int bytes,
+                              std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t{1} << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace hopper

@@ -1,4 +1,4 @@
 from .ops import flash_attention
-from .ref import attention_plain
+from .ref import attention_plain, attention_plain_bwd
 
-__all__ = ["flash_attention", "attention_plain"]
+__all__ = ["flash_attention", "attention_plain", "attention_plain_bwd"]

@@ -15,10 +15,15 @@ from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_plain
+from repro_torch.kernels.flash_attention import attention_plain_bwd
 from repro_torch.kernels.flash_attention import flash_attention as t_flash
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.kernel import plan as flash_plan
+from repro_torch.kernels.flash_attention.kernel import plan_bwd
 from repro_torch.kernels.flash_attention.kernel import tma_view_problem
 from repro_torch.kernels.paged_attention import paged_attention as t_paged
 from repro_torch.kernels.paged_attention import paged_attention_plain
@@ -107,6 +112,176 @@ def test_flash_grad_matches_jax():
                                    rtol=1e-4)
 
 
+# ------------------------------------------- flash attention, backward
+def _plain_grads(q, k, v, g, **mask):
+    """dq, dk, dv by autograd through the plain forward."""
+    inputs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = attention_plain(*inputs, **mask)
+    return torch.autograd.grad(out, inputs, g)
+
+
+def _kernel_algorithm(q, k, v, g, **mask):
+    """The backward kernel's algorithm: the forward's log-sum-exp, then
+    `attention_plain_bwd`."""
+    out, lse = attention_plain(q, k, v, return_lse=True, **mask)
+    return attention_plain_bwd(q, k, v, out, lse, g, **mask)
+
+
+def _close(got, want, tol):
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(_f32(a), _f32(r), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,sq,h,hkv,d", [
+    (2, 256, 4, 2, 64),
+    (1, 128, 8, 8, 128),
+    (2, 512, 4, 1, 64),      # MQA
+    (1, 384, 6, 2, 128),     # non-power-of-two seq (3 blocks)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_bwd_matches_autograd_and_jax(b, sq, h, hkv, d, dtype):
+    """The backward kernel's algorithm against autograd through the plain
+    forward (the op's recompute) and against jax.grad of the JAX package's
+    op.  bf16: the JAX op rounds P to bf16 before P·V and its backward runs
+    its einsums in bf16, so it is held at bf16's tolerance on the scale of
+    the gradients."""
+    rng = np.random.default_rng(11)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, b, sq, h, hkv, d, dtype)
+    gj, gt = _pair(rng.standard_normal((b, sq, h, d)).astype(np.float32),
+                   dtype)
+    got = _kernel_algorithm(qt, kt, vt, gt, causal=True)
+    assert [t.dtype for t in got] == [qt.dtype] * 3
+    tol = TOL[dtype] if dtype == "bfloat16" else 1e-4
+    _close(got, _plain_grads(qt, kt, vt, gt, causal=True), tol)
+    _, vjp = jax.vjp(lambda q, k, v: flash_attention(
+        q, k, v, True, None, 128, 128, True), qj, kj, vj)
+    want = vjp(gj)
+    scale = max(float(np.abs(_f32(w)).max()) for w in want)
+    _close(got, want, tol if dtype == "float32" else 2 * tol * scale)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (96, 160, True, None),    # fewer queries than keys, top-left diagonal
+    (160, 96, True, None),
+    (96, 160, False, None),
+    (160, 96, False, 80),
+    (256, 256, True, 64),
+    (256, 256, True, 200),
+    (256, 256, False, 64),
+])
+def test_flash_plain_bwd_masks(sq, skv, causal, window):
+    rng = np.random.default_rng(12)
+    (qj, qt), _, _ = _qkv(rng, 2, sq, 4, 2, 32, "float32")
+    (kj, kt), (vj, vt) = (_pair(rng.standard_normal((2, skv, 2, 32))
+                                .astype(np.float32), "float32")
+                          for _ in range(2))
+    gj, gt = _pair(rng.standard_normal((2, sq, 4, 32)).astype(np.float32),
+                   "float32")
+    mask = dict(causal=causal, sliding_window=window)
+    got = _kernel_algorithm(qt, kt, vt, gt, **mask)
+    _close(got, _plain_grads(qt, kt, vt, gt, **mask), 1e-4)
+    _, vjp = jax.vjp(lambda q, k, v: flash_attention(
+        q, k, v, causal, window, 32, 32, True), qj, kj, vj)
+    _close(got, vjp(gj), 1e-4)
+
+
+def test_flash_plain_bwd_edge_masks():
+    """A row that sees no key (non-causal, window past the end of k) has
+    lse +inf, weight 0 and gradients 0, never NaN; the keys it would have
+    seen get nothing from it.  A window of 1 sends each row's gradient to
+    its own key alone."""
+    rng = np.random.default_rng(13)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 8, 4, 32))
+                                   .astype(np.float32)) for _ in range(4))
+    k, v = k[:, :4, :2], v[:, :4, :2]                    # G = 2, Skv = 4
+    mask = dict(causal=False, sliding_window=2)          # rows 5.. see none
+    out, lse = attention_plain(q, k, v, return_lse=True, **mask)
+    assert torch.isinf(lse[:, :, 5:]).all() and lse[:, :, 5:].min() > 0
+    assert torch.isfinite(lse[:, :, :5]).all()
+    got = attention_plain_bwd(q, k, v, out, lse, g, **mask)
+    assert all(torch.isfinite(t).all() for t in got)
+    assert got[0][:, 5:].abs().max() == 0 and got[0][:, :5].abs().max() > 0
+    _close(got, _plain_grads(q, k, v, g, **mask), 1e-5)
+    # rows 5.. changed nothing: the same gradients without them
+    part = attention_plain_bwd(q[:, :5], k, v, out[:, :5], lse[:, :, :5],
+                               g[:, :5], **mask)
+    _close(got[1:], part[1:], 1e-6)
+    k1, v1 = (torch.from_numpy(rng.standard_normal((1, 8, 1, 32))
+                               .astype(np.float32)) for _ in range(2))
+    own = _kernel_algorithm(q, k1, v1, g, causal=True, sliding_window=1)
+    for t in own[:2]:                      # P is 1, so dS is 0
+        np.testing.assert_allclose(t.numpy(), 0, atol=1e-5)
+    np.testing.assert_allclose(own[2].numpy(),
+                               g.sum(2, keepdim=True).numpy(), atol=1e-5)
+
+
+def test_flash_plain_lse_is_the_rows_logsumexp():
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 50, n, 64))
+                                .astype(np.float32)) for n in (6, 2, 2))
+    _, lse = attention_plain(q, k, v, causal=True, sliding_window=20,
+                             return_lse=True)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q,
+                          k.repeat_interleave(3, dim=2)) / 8.0
+    pos = torch.arange(50)
+    seen = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 20)
+    want = torch.logsumexp(logits.masked_fill(~seen, -float("inf")), -1)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-6)
+
+
+class _FakeCard:
+    """The op's kernels replaced by their plain versions, counting what the
+    op asked for."""
+
+    def __init__(self, monkeypatch):
+        self.fwd_lse, self.bwd_calls = [], 0
+        monkeypatch.setattr(flash_ops, "_on_card", lambda t: True)
+        monkeypatch.setattr(flash_kernel, "flash_attention_fwd", self.fwd)
+        monkeypatch.setattr(flash_kernel, "flash_attention_bwd", self.bwd)
+
+    def fwd(self, q, k, v, *, causal, sliding_window, return_lse=False):
+        self.fwd_lse.append(return_lse)
+        return attention_plain(q, k, v, causal=causal,
+                               sliding_window=sliding_window,
+                               return_lse=return_lse)
+
+    def bwd(self, q, k, v, out, lse, dout, *, causal, sliding_window):
+        self.bwd_calls += 1
+        return attention_plain_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   sliding_window=sliding_window)
+
+
+@pytest.mark.parametrize("dtype,needs,want", [
+    (torch.bfloat16, (True, True, True), True),
+    (torch.bfloat16, (False, True, False), True),     # k alone (a frozen q)
+    (torch.bfloat16, (False, False, False), False),   # prefill, no_grad
+    (torch.float32, (True, True, True), False),       # fp32: plain recompute
+])
+def test_flash_forward_saves_lse_only_for_a_gradient(monkeypatch, dtype,
+                                                     needs, want):
+    card = _FakeCard(monkeypatch)
+    rng = np.random.default_rng(15)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 64, n, 32))
+                                   .astype(np.float32)).to(dtype)
+                  for n in (4, 2, 2, 4))
+    inputs = [t.clone().requires_grad_(r) for t, r in zip((q, k, v), needs)]
+    out = t_flash(*inputs, causal=True, sliding_window=48)
+    assert card.fwd_lse == [want]
+    if not any(needs):
+        with torch.no_grad():
+            t_flash(q, k, v, causal=True)
+        assert card.fwd_lse == [False, False]
+        return
+    out.backward(g)
+    assert card.bwd_calls == int(want)
+    ref = _plain_grads(q, k, v, g, causal=True, sliding_window=48)
+    for t, r, need in zip(inputs, ref, needs):
+        if need:
+            np.testing.assert_allclose(_f32(t.grad), _f32(r), atol=2e-2,
+                                       rtol=2e-2)
+
+
 # -------------------------------------------------------- paged attention
 def _paged_inputs(rng, b, h, hkv, d, pages, t, pp, dtype):
     q = rng.standard_normal((b, h, d)).astype(np.float32)
@@ -175,6 +350,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    # the fp32 kernel keeps no log-sum-exp: its backward is the plain one
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_fwd(q, q, q, return_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_fwd(torch.zeros(1, 2, 32), torch.zeros(4, 4, 1, 32),
                             torch.zeros(4, 4, 1, 32),
@@ -189,6 +370,7 @@ def test_kernel_sources_build_inside_the_repo():
     headers = sorted(_build.CSRC.glob("*.cuh"))
     assert [h.name for h in headers] == ["hopper.cuh"]
     for name, entry in (("flash_attention", "flash_attention_fwd"),
+                        ("flash_attention_bwd", "flash_attention_bwd"),
                         ("paged_attention", "paged_attention_fwd"),
                         ("mamba2_scan", "ssd_scan_fwd")):
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -238,6 +420,25 @@ def test_flash_plan_tiles_and_grid(dtype, b, sq, h, d, want):
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "BQ = 128" in src and "BK = 64" in src
     assert "F_BQ = 64" in src and "F_BK = 32" in src
+
+
+@pytest.mark.parametrize("b,sq,skv,hkv,want", [
+    (4, 2048, 2048, 5, (64, 128, 2048, (16, 5, 4))),   # smollm train
+    (1, 564, 564, 4, (64, 128, 576, (5, 4, 1))),       # qwen2's prompt
+    (2, 300, 77, 2, (64, 128, 320, (1, 2, 2))),        # Sq > Skv
+    (1, 30, 1500, 16, (64, 128, 64, (12, 16, 1))),
+])
+def test_flash_plan_bwd_tiles_and_grid(b, sq, skv, hkv, want):
+    assert tuple(plan_bwd(b, sq, skv, hkv)) == want
+    # the library is built for these tiles and refuses others; its kernels'
+    # names hold `flash_bwd` and never the forward's `flash_bf16`, which
+    # the benchmark's readers tell apart by name
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "BKV = 128" in src and "BQ = 64" in src
+    kernels = [line.split("(")[0] for line in src.splitlines()
+               if line.startswith("flash_bwd")]
+    assert kernels == ["flash_bwd_prep", "flash_bwd", "flash_bwd_dq"]
+    assert "flash_bf16" not in src.replace("`flash_bf16`", "")
 
 
 def _tma_problem(t: torch.Tensor):
