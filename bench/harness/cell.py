@@ -2,9 +2,11 @@
 
 Everything a cell is made of is found by name: ``BENCHMARK.json`` names
 its configuration (``configs/<name>.json``) and traffic mix
-(``traffic/<name>.json``); its limits are ``limits/<cell>.json``; each
-per-layer metric is read by ``metrics/<metric>.py``.  A new cell or metric
-is new files and entries, and no edit here.
+(``traffic/<name>.json``); the configuration names its model family
+(``families/<family>.py``) and its plain reference (``family.py``); its
+limits are ``limits/<cell>.json``; each per-layer metric is read by
+``metrics/<metric>.py``.  A new cell, metric or model family is new files
+and entries, and no edit here.
 """
 from __future__ import annotations
 

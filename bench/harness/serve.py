@@ -3,8 +3,9 @@ check of what it served against the reference.
 
 Set-up draws the weights, builds the engine, prefills each shared system
 prompt once as a resident root sequence and warms up; the window then
-admits every request that is due (``Engine.add``, forked from its root:
-the prefill, whose last logits give the first token) and steps the engine
+admits every request that is due (``Engine.add``, forked from its root, or
+whole where the mix has no shared prompts: the prefill, whose last logits
+give the first token) and steps the engine
 (``Engine.step``: one token for every running request) until the window
 closes.  Open loop: requests fall due on the mix's Poisson schedule.  Time
 to first token counts from when a request was due, so a stall shows in the
@@ -21,8 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import arith, traffic, weights
-from ..reference import dense as ref
+from . import arith, family, traffic, weights
 
 
 @dataclass
@@ -53,18 +53,21 @@ class Server:
         self.record = False
 
     def _admit(self, r: traffic.Request, due: float) -> Live:
-        prompt = np.concatenate([self.mix.prefixes[r.prefix], r.suffix])
+        if r.prefix is None:
+            prompt, root, cached = r.suffix, None, 0
+        else:
+            prefix = self.mix.prefixes[r.prefix]
+            prompt = np.concatenate([prefix, r.suffix])
+            root, cached = self.roots[r.prefix], len(prefix)
         lv = Live(r, prompt, due)
         t0 = time.perf_counter()
-        lv.sid = self.eng.add(prompt, r.max_new,
-                              fork_from=self.roots[r.prefix])
+        lv.sid = self.eng.add(prompt, r.max_new, fork_from=root)
         t1 = time.perf_counter()
         lv.times.append(t1)
         if self.record:
             # the prompt's tokens, and those of them whose K/V the root
             # already holds
-            self.spans.append(("engine.add", t0, t1, len(prompt),
-                               len(self.mix.prefixes[r.prefix])))
+            self.spans.append(("engine.add", t0, t1, len(prompt), cached))
         self.seen.append(lv)
         self.live[lv.sid] = lv
         if r.max_new <= 1:
@@ -182,12 +185,13 @@ def served_sample(srv: Server, start: float, end: float, want: int,
     return out
 
 
-def token_gaps(params: Dict, m: Dict, sample: List[Live], device,
+def token_gaps(ref, params: Dict, m: Dict, sample: List[Live], device,
                modes=("fp32",)) -> Dict[str, torch.Tensor]:
-    """For each served token of ``sample``: how far the reference's logit
-    of that token lies below the reference's best at its position, in
-    standard deviations of that position's logits.  With "fp8" among
-    ``modes``, also the gap of the token that the control puts first."""
+    """For each served token of ``sample``: how far the logit of that
+    token under the reference ``ref`` lies below the reference's best at
+    its position, in standard deviations of that position's logits.
+    With "fp8" among ``modes``, also the gap of the token that the
+    control puts first."""
     seqs, rows, targets = [], [], []
     for lv in sample:
         full = np.concatenate([lv.prompt, lv.tokens[:-1]]).astype(np.int64)
@@ -208,18 +212,16 @@ def token_gaps(params: Dict, m: Dict, sample: List[Live], device,
     return out
 
 
-def build(m: Dict, config: Dict, seed: int, device):
+def build(fam, m: Dict, config: Dict, seed: int, device):
     """The program's engine over the benchmark's weights: the model
-    config as the port names it, the weights, the engine."""
-    from repro_torch.configs.base import ModelConfig
+    config as the port names it (from the family ``fam``), the weights,
+    the engine."""
     from repro_torch.models import get_model
     from repro_torch.serving import Engine, EngineConfig
     s = config["serving"]
-    cfg = ModelConfig(name=config["name"], arch_kind="dense",
-                      param_dtype=s["param_dtype"],
-                      compute_dtype=s["compute_dtype"],
-                      attn_impl=s["attn_impl"], **m)
-    params = weights.draw(m, seed, getattr(torch, s["param_dtype"]), device)
+    cfg = fam.program_config(config, m, "serving")
+    params = weights.draw(fam.shapes(m), seed,
+                          getattr(torch, s["param_dtype"]), device)
     eng = Engine(get_model(cfg), params, EngineConfig(
         page_tokens=s["page_tokens"], num_pages=s["num_pages"],
         device=str(device)))
@@ -231,8 +233,9 @@ def run(config: Dict, mix_spec: Dict, seed: int, seconds: float,
         control: bool = False) -> Dict:
     """One serving run: set-up, the window, the drain, the check
     (``control``: the fp8 control's gaps on the same sample too)."""
-    m = weights.sizes(config)
-    params, eng = build(m, config, seed, device)
+    fam, ref = family.of(config), family.reference(config)
+    m = fam.sizes(config)
+    params, eng = build(fam, m, config, seed, device)
     mix = traffic.serve_mix(mix_spec, m["vocab"], seed, seconds)
     srv = Server(eng, mix, config["serving"]["page_tokens"])
     start, queue = warm_up(srv, tracer.start if tracer is not None
@@ -252,7 +255,8 @@ def run(config: Dict, mix_spec: Dict, seed: int, seconds: float,
     peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
     sample = served_sample(srv, start, end, mix.sample_tokens, seed)
-    ctx = {"sizes": m, "page_tokens": config["serving"]["page_tokens"],
+    ctx = {"sizes": m, "family": fam,
+           "page_tokens": config["serving"]["page_tokens"],
            "spans": srv.spans, "steps": srv.steps}
     # the program's state goes before the reference runs
     srv.eng = eng = None
@@ -261,7 +265,8 @@ def run(config: Dict, mix_spec: Dict, seed: int, seconds: float,
         torch.cuda.empty_cache()
     ref.exact_fp32()
     modes = ("fp32", "fp8") if control else ("fp32",)
-    gaps = token_gaps(params, m, sample, device, modes) if sample else {}
+    gaps = token_gaps(ref, params, m, sample, device, modes) \
+        if sample else {}
     return {"nums": nums, "setup_s": setup_s, "peak": peak, "ctx": ctx,
             "gaps": gaps, "served_tokens": sum(len(lv.tokens)
                                                for lv in sample)}

@@ -66,8 +66,9 @@ def arrivals(rate: float, n: int, rng: np.random.Generator) -> np.ndarray:
 
 @dataclass
 class Request:
-    prefix: int                  # index of the shared system prompt
-    suffix: np.ndarray           # the request's own tokens
+    prefix: Optional[int]        # index of the shared system prompt
+    suffix: np.ndarray           # the request's own tokens (with no
+                                 # prefix, the whole prompt)
     max_new: int                 # tokens to generate (greedy)
     due: float = 0.0             # offset from the window's start
 
@@ -85,7 +86,8 @@ def serve_mix(mix: Dict, vocab: int, seed: int, seconds: float) -> ServeMix:
     (``warmup_s`` + ``seconds``) Poisson arrivals, the first ``warmup_s``'
     worth in set-up.  The arrivals, prefixes and sizes are drawn from the
     mix's ``schedule_seed``, the same for every run; the run's seed draws
-    the token ids alone."""
+    the token ids alone.  A mix with ``"prefixes": []`` shares no prompt:
+    each request's prompt is its ``suffix`` alone, and its prefix None."""
     order = mix["schedule_seed"]
     rng = rng_for(seed, 0)
     prefixes = [rng.integers(0, vocab, p["tokens"]).astype(np.int32)
@@ -96,12 +98,13 @@ def serve_mix(mix: Dict, vocab: int, seed: int, seconds: float) -> ServeMix:
     # after the warm-up's is due
     due = arrivals(mix["rate_per_s"], n, rng_for(order, 1))
     due -= due[warm]
-    which = shares([p["share"] for p in mix["prefixes"]], n,
-                   rng_for(order, 2))
+    which = [int(i) for i in shares([p["share"] for p in mix["prefixes"]],
+                                    n, rng_for(order, 2))] \
+        if prefixes else [None] * n
     suffix = quantile_sizes(mix["suffix"], n, rng_for(order, 3))
     out = quantile_sizes(mix["output"], n, rng_for(order, 4))
     toks = rng_for(seed, 5)
-    reqs = [Request(int(which[i]), toks.integers(0, vocab, int(suffix[i]))
+    reqs = [Request(which[i], toks.integers(0, vocab, int(suffix[i]))
                     .astype(np.int32), int(out[i]), float(due[i]))
             for i in range(n)]
     return ServeMix(prefixes, reqs[warm:], reqs[:warm], mix["sample_tokens"])

@@ -4,12 +4,17 @@ and the check of its first steps against the reference.
 Set-up writes the corpus from the seed into a WTF cluster under
 ``TMPDIR``, draws the weights, builds the one train step and its state,
 and drives it through its first steps with the same call the window makes
-(``next(pipeline)``, the host-to-device copy, ``train_step``, the loss read
-back, as ``Trainer.run`` does at every logged step).  The window runs that
-call until it closes; it ends on the last step's synchronisation.
+(``next(pipeline)``, the copy to the card from pinned memory,
+``train_step``, an event on the card after it), each step waited for and
+its loss read back.  The window sends that call ahead of the card: it
+waits only for the step ``ahead_steps`` back (the traffic file's; some
+seconds of steps), so the card stays fed while the host stalls.  When its
+time is up it sends nothing more, waits for every step sent, and reads the
+clock after that wait: every step sent counts, over all of that time.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import shutil
 import tempfile
@@ -19,20 +24,18 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from . import traffic, weights
-from ..reference import dense as ref
+from . import family, traffic, weights
 
 
 def clone(tree: Dict) -> Dict[str, torch.Tensor]:
     """Copies of a tree's leaves, by path."""
-    return {k: v.detach().clone() for k, v in ref.leaves(tree).items()}
+    return {k: v.detach().clone() for k, v in weights.leaves(tree).items()}
 
 
 class Job:
     """The cluster, the pipeline, and the one train step with its state."""
 
-    def __init__(self, config: Dict, mix: Dict, seed: int, device):
-        from repro_torch.configs.base import ModelConfig
+    def __init__(self, fam, config: Dict, mix: Dict, seed: int, device):
         from repro_torch.core import Cluster
         from repro_torch.data.pipeline import DataPipeline, PipelineConfig
         from repro_torch.data.records import RecordWriter
@@ -41,7 +44,7 @@ class Job:
         from repro_torch.train.step import TrainHyper, make_train_step
 
         self.device = device
-        self.m = m = weights.sizes(config)
+        self.m = m = fam.sizes(config)
         t = config["training"]
         b, s = mix["global_batch"], mix["seq_len"]
         self.data_dir = tempfile.mkdtemp(prefix="bench_wtf_")
@@ -62,13 +65,10 @@ class Job:
             src_paths=("/corpus/shard0",), work_dir="/epochs",
             block_tokens=s + 1, global_batch=b, seed=seed % 2**31))
         self.it = iter(self.pipeline)
-        cfg = ModelConfig(name=config["name"], arch_kind="dense",
-                          param_dtype=t["param_dtype"],
-                          compute_dtype=t["compute_dtype"],
-                          attn_impl=t["attn_impl"], remat=t["remat"],
-                          accum_steps=mix["accum_steps"], **m)
-        params = weights.draw(m, seed, getattr(torch, t["param_dtype"]),
-                              device)
+        cfg = fam.program_config(config, m, "training",
+                                 accum_steps=mix["accum_steps"])
+        params = weights.draw(fam.shapes(m), seed,
+                              getattr(torch, t["param_dtype"]), device)
         self.state = {"params": params, "opt": opt.init(params),
                       "step": torch.zeros((), dtype=torch.int32,
                                           device=device)}
@@ -76,25 +76,68 @@ class Job:
             adamw=opt.AdamWConfig(**t["adamw"]),
             accum_steps=mix["accum_steps"]))
         self.batches: List[tuple] = []    # (tokens, labels) handed out
+        self.pending: collections.deque = collections.deque()
         self.spans: List[tuple] = []
+        self.done: List = []    # each window step's end: event or time
         self.record = False
 
-    def step(self) -> Dict[str, float]:
-        """One step as the window takes it; the loss is read back."""
+    def event(self):
+        """A timing event recorded on the card now (None on the CPU, where
+        a step has ended when its call returns)."""
+        if self.device.type != "cuda":
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def upload(self, rows: np.ndarray) -> torch.Tensor:
+        """Rows to the card from pinned memory, without waiting for it."""
+        t = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def send(self, ahead: int) -> Dict[str, torch.Tensor]:
+        """One step as set-up and the window take it, then a wait for the
+        step ``ahead`` steps back (0: this one).  Returns the step's
+        metrics, still on the card."""
         t0 = time.perf_counter()
         raw = next(self.it)
-        batch = {k: torch.from_numpy(np.array(raw[k])).to(self.device)
+        batch = {k: self.upload(np.array(raw[k]))
                  for k in ("tokens", "labels")}
         t1 = time.perf_counter()
         self.state, metrics = self.step_fn(self.state, batch)
-        loss = float(metrics["loss"])
+        end = self.event()
+        self.pending.append(end)
+        self.drain(ahead)
         t2 = time.perf_counter()
         if self.record:
             self.spans.append(("pipeline.next", t0, t1, 0))
             self.spans.append(("train_step", t1, t2, 0))
+            self.done.append(t2 if end is None else end)
         self.batches.append((np.array(raw["tokens"]),
                              np.array(raw["labels"])))
-        return {"loss": loss, "grad_norm": float(metrics["grad_norm"])}
+        return metrics
+
+    def drain(self, ahead: int = 0) -> None:
+        """Waits until at most ``ahead`` steps sent have not ended."""
+        while len(self.pending) > ahead:
+            e = self.pending.popleft()
+            if e is not None:
+                e.synchronize()
+
+    def step(self) -> Dict[str, float]:
+        """One step waited for; its loss is read back."""
+        metrics = self.send(0)
+        return {"loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"])}
+
+    def step_ends(self, opened, start: float) -> List[float]:
+        """Each window step's end on the perf clock: from the card's events
+        after the last wait, taking the window's open (``opened``, recorded
+        on an idle card) as ``start``."""
+        return [d if opened is None else start + opened.elapsed_time(d) / 1e3
+                for d in self.done]
 
     def close(self) -> None:
         self.it.close()
@@ -116,7 +159,8 @@ def run(config: Dict, mix: Dict, seed: int, seconds: float, device,
     """One training run: set-up and its checked steps, the window, the
     check (``control``: also the readings of the fp8 control and of a
     step that left half the batch out, each as the program's would be)."""
-    job = Job(config, mix, seed, device)
+    fam, ref = family.of(config), family.reference(config)
+    job = Job(fam, config, mix, seed, device)
     try:
         p0 = clone(job.state["params"])
         first = [job.step()]
@@ -133,11 +177,14 @@ def run(config: Dict, mix: Dict, seed: int, seconds: float, device,
         if tracer is not None:
             tracer.mark_open()
         job.record = True
+        opened = job.event()
         steps = 0
         while time.perf_counter() < start + seconds:
-            job.step()
+            job.send(mix["ahead_steps"])
             steps += 1
-        end = time.perf_counter()       # the last step's loss is read back
+        job.drain()
+        end = time.perf_counter()       # every step sent has ended
+        ends = job.step_ends(opened, start)
         if tracer is not None:
             tracer.stop()
         peak = torch.cuda.max_memory_allocated(device) \
@@ -153,7 +200,8 @@ def run(config: Dict, mix: Dict, seed: int, seconds: float, device,
             "grad_t": {k: v / (1 - h["b1"]) for k, v in m1.items()},
             "update": {k: float((p3[k] - p0[k]).norm()) for k in p0},
             "update_t": {k: p3[k] - p0[k] for k in p0}}
-    ctx = {"sizes": job.m, "spans": job.spans, "steps": steps,
+    ctx = {"sizes": job.m, "family": fam, "spans": job.spans, "steps": steps,
+           "window_start": start, "step_ends": ends,
            "batch": mix["global_batch"],
            "seq_len": mix["seq_len"], "accum_steps": mix["accum_steps"]}
     # the program's state goes before the reference runs
@@ -161,7 +209,7 @@ def run(config: Dict, mix: Dict, seed: int, seconds: float, device,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    refr = reference_steps(h, ctx["sizes"], p0, checked, device)
+    refr = reference_steps(ref, h, ctx["sizes"], p0, checked, device)
     checks = gaps(prog, refr)
     checks["rows_not_in_corpus"] = bad_rows
     out = {"steps": steps, "window_s": end - start,
@@ -172,29 +220,29 @@ def run(config: Dict, mix: Dict, seed: int, seconds: float, device,
                 for tok, lab in checked]
         out["readings"] = {
             "program": prog, "fp32": refr,
-            "fp8": reference_steps(h, ctx["sizes"], p0, checked, device,
-                                   fp8=True),
-            "half_batch": reference_steps(h, ctx["sizes"], p0, half,
+            "fp8": reference_steps(ref, h, ctx["sizes"], p0, checked,
+                                   device, fp8=True),
+            "half_batch": reference_steps(ref, h, ctx["sizes"], p0, half,
                                           device)}
         out["faults"] = {k: gaps(out["readings"][k], refr)
                          for k in ("fp8", "half_batch")}
     return out
 
 
-def reference_steps(h: Dict, m: Dict, p0: Dict[str, torch.Tensor],
+def reference_steps(ref, h: Dict, m: Dict, p0: Dict[str, torch.Tensor],
                     batches: List[tuple], device, fp8: bool = False
                     ) -> Dict:
-    """The reference's first steps from the same weights and batches
-    (``fp8``: the control), read as the program's are: each step's loss,
-    the first step's global gradient norm before clipping, each leaf's
-    first gradient as the optimizer took it (clipped), and each leaf's
-    change over the steps."""
+    """The first steps of the reference ``ref`` from the same weights and
+    batches (``fp8``: the control), read as the program's are: each step's
+    loss, the first step's global gradient norm before clipping, each
+    leaf's first gradient as the optimizer took it (clipped), and each
+    leaf's change over the steps."""
     ref.exact_fp32()
     params = {k: v.float().clone() for k, v in p0.items()}
     state: Dict = {}
     out: Dict = {"losses": []}
     for i, (tok, lab) in enumerate(batches, start=1):
-        loss, g = ref.grads(_tree(params), m,
+        loss, g = ref.grads(weights.tree(params), m,
                             torch.from_numpy(tok).to(device),
                             torch.from_numpy(lab).to(device), fp8)
         gn = ref.adamw(h, params, g, state, i)
@@ -242,12 +290,3 @@ def gaps(prog: Dict, refr: Dict) -> Dict[str, float]:
             "update_leaf_gap": max(leaf_gaps("update", med_u)),
             "update_diff_leaf_gap": diff("update_t", refr["update"], med_u)}
 
-
-def _tree(flat_params: Dict[str, torch.Tensor]) -> Dict:
-    tree: Dict = {"layers": {}}
-    for k, v in flat_params.items():
-        if k.startswith("layers/"):
-            tree["layers"][k[len("layers/"):]] = v
-        else:
-            tree[k] = v
-    return tree

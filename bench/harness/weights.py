@@ -2,9 +2,9 @@
 from the run's seed on the device.
 
 The weights are the benchmark's, not the program's: they are drawn here,
-one ``torch.randn`` per leaf of the stacked tree (ten or so large calls),
-in the type they are served or trained in, and handed alike to the program
-and to the reference.
+one ``torch.randn`` per leaf of the stacked tree that the configuration's
+family gives (ten or so large calls), in the type they are served or
+trained in, and handed alike to the program and to the reference.
 """
 from __future__ import annotations
 
@@ -18,56 +18,22 @@ import torch
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
 
-# the published config's keys → the model's sizes as the harness and the
-# reference name them
-KEYS = {"hidden_size": "d_model", "intermediate_size": "d_ff",
-        "num_hidden_layers": "n_layers", "num_attention_heads": "n_heads",
-        "num_key_value_heads": "n_kv_heads", "head_dim": "head_dim",
-        "vocab_size": "vocab", "rope_theta": "rope_theta",
-        "rms_norm_eps": "norm_eps", "tie_word_embeddings": "tie_embeddings"}
-
 
 def load_config(name: str) -> Dict:
     with open(os.path.join(CONFIG_DIR, f"{name}.json")) as f:
         return json.load(f)
 
 
-def sizes(config: Dict) -> Dict:
-    """The model's sizes under the harness's names."""
-    return {ours: config[theirs] for theirs, ours in KEYS.items()}
-
-
-def shapes(m: Dict) -> Dict[str, tuple]:
-    """Every leaf of the dense model's stacked parameter tree: its shape,
-    and how it is drawn (fan-in scaled normal, embedding normal, or a norm
-    scale near 1)."""
-    d, hd, n = m["d_model"], m["head_dim"], m["n_layers"]
-    out = {
-        "embedding": ((m["vocab"], d), "embed"),
-        "ln_f": ((d,), "norm"),
-        "layers/ln": ((n, d), "norm"),
-        "layers/ln2": ((n, d), "norm"),
-        "layers/wq": ((n, d, m["n_heads"] * hd), "fan_in"),
-        "layers/wk": ((n, d, m["n_kv_heads"] * hd), "fan_in"),
-        "layers/wv": ((n, d, m["n_kv_heads"] * hd), "fan_in"),
-        "layers/wo": ((n, m["n_heads"] * hd, d), "fan_in"),
-        "layers/w_gate": ((n, d, m["d_ff"]), "fan_in"),
-        "layers/w_up": ((n, d, m["d_ff"]), "fan_in"),
-        "layers/w_down": ((n, m["d_ff"], d), "fan_in"),
-    }
-    if not m["tie_embeddings"]:
-        out["unembedding"] = ((m["vocab"], d), "embed")
-    return out
-
-
 @torch.no_grad()
-def draw(m: Dict, seed: int, dtype: torch.dtype,
+def draw(shapes: Dict[str, tuple], seed: int, dtype: torch.dtype,
          device: torch.device) -> Dict:
-    """The parameter tree (``{"embedding", "ln_f", "layers": {...}}``)
-    drawn from ``seed`` on ``device`` in ``dtype``."""
+    """The parameter tree of ``shapes`` (a family's: each leaf's path,
+    shape and kind), drawn from ``seed`` on ``device`` in ``dtype``, in
+    the order of ``shapes``: fan-in scaled normal, embedding normal, or a
+    norm scale near 1."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    tree: Dict = {"layers": {}}
-    for name, (shape, kind) in shapes(m).items():
+    flat = {}
+    for name, (shape, kind) in shapes.items():
         t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
         if kind == "fan_in":
             t.mul_(1.0 / math.sqrt(shape[-2]))
@@ -75,8 +41,28 @@ def draw(m: Dict, seed: int, dtype: torch.dtype,
             t.mul_(0.02)
         else:
             t.mul_(0.1).add_(1.0)
-        if name.startswith("layers/"):
-            tree["layers"][name[len("layers/"):]] = t
+        flat[name] = t
+    return tree(flat)
+
+
+def tree(flat: Dict) -> Dict:
+    """The stacked tree of leaves by path: ``layers/<leaf>`` under
+    ``layers`` (first), the others at the top."""
+    out: Dict = {"layers": {}}
+    for k, v in flat.items():
+        if k.startswith("layers/"):
+            out["layers"][k[len("layers/"):]] = v
         else:
-            tree[name] = t
-    return tree
+            out[k] = v
+    return out
+
+
+def leaves(tree: Dict, prefix: str = "") -> Dict:
+    """A nested tree's leaves by path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out

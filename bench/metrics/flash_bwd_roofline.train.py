@@ -1,8 +1,9 @@
 """The flash backward kernel's share of its roofline in the train steps,
-in %: the least time of every backward launch (one per layer per
-microbatch, causal, from its shapes) summed, over the device time of
-every operation whose name holds ``flash_bwd`` (the kernel, its pre-pass
-and its post-pass).  A program without that kernel reads nothing."""
+in %: the least time of every backward launch (one per attention layer
+per microbatch, causal, from its shapes; the layers are the model family's)
+summed, over the device time of every operation whose name holds
+``flash_bwd`` (the kernel, its pre-pass and its post-pass).  A program
+without that kernel reads nothing."""
 from bench.harness import arith
 
 
@@ -20,8 +21,8 @@ def read(ctx):
     secs = trace.seconds(["flash_bwd"]) if trace is not None else None
     if not ctx.get("steps") or not secs:
         return None
-    m, k = ctx["sizes"], ctx["accum_steps"]
-    least = ctx["steps"] * k * m["n_layers"] * bound_s(
-        ctx["batch"] // k, ctx["seq_len"], m["n_heads"], m["n_kv_heads"],
-        m["head_dim"])
+    k = ctx["accum_steps"]
+    least = sum(ctx["steps"] * k * n * bound_s(
+        ctx["batch"] // k, ctx["seq_len"], h, hkv, d)
+        for n, h, hkv, d in ctx["family"].attention_layers(ctx["sizes"]))
     return 100 * least / secs

@@ -1,8 +1,8 @@
 """The flash kernel's share of its roofline in the window's prefills, in %:
-the least time of each launch (one per layer per prompt: the queries past
-the shared prefix, whose K/V the fork finds cached, causal over the whole
-prompt, from its shapes) summed, over the device time of ``flash_bf16`` in
-the trace."""
+the least time of each launch (one per attention layer per prompt: the
+queries past the shared prefix, whose K/V the fork finds cached, causal
+over the whole prompt, from its shapes; the layers are the model family's)
+summed, over the device time of ``flash_bf16`` in the trace."""
 from bench.harness import arith
 
 
@@ -12,9 +12,8 @@ def read(ctx):
     secs = trace.seconds(["flash_bf16"]) if trace is not None else None
     if not adds or not secs:
         return None
-    m = ctx["sizes"]
-    least = m["n_layers"] * sum(
-        arith.flash_bound_s(1, n, m["n_heads"], m["n_kv_heads"],
-                            m["head_dim"], cached)
-        for *_, n, cached in adds)
+    least = sum(n * sum(arith.flash_bound_s(1, s, h, hkv, d, cached)
+                        for *_, s, cached in adds)
+                for n, h, hkv, d in
+                ctx["family"].attention_layers(ctx["sizes"]))
     return 100 * least / secs

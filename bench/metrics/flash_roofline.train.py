@@ -1,7 +1,9 @@
 """The flash kernel's share of its roofline in the train steps' forwards,
-in %: the least time of each launch (one per layer per microbatch, causal,
-from its shapes) summed, over the device time of ``flash_bf16`` in the
-trace.  The attention backward is no kernel and is not counted."""
+in %: the least time of each launch (one per attention layer per
+microbatch, causal, from its shapes; the layers are the model family's)
+summed, over the device time of ``flash_bf16`` in the trace.  The
+attention backward, the ``flash_bwd`` kernels, is
+``flash_bwd_roofline.train``'s."""
 from bench.harness import arith
 
 
@@ -10,8 +12,8 @@ def read(ctx):
     secs = trace.seconds(["flash_bf16"]) if trace is not None else None
     if not ctx.get("steps") or not secs:
         return None
-    m, k = ctx["sizes"], ctx["accum_steps"]
-    least = ctx["steps"] * k * m["n_layers"] * arith.flash_bound_s(
-        ctx["batch"] // k, ctx["seq_len"], m["n_heads"], m["n_kv_heads"],
-        m["head_dim"])
+    k = ctx["accum_steps"]
+    least = sum(ctx["steps"] * k * n * arith.flash_bound_s(
+        ctx["batch"] // k, ctx["seq_len"], h, hkv, d)
+        for n, h, hkv, d in ctx["family"].attention_layers(ctx["sizes"]))
     return 100 * least / secs

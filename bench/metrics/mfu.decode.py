@@ -2,7 +2,7 @@
 on the card (the larger of its operations over 989 TFLOP/s and its bytes
 over 3.35 TB/s; bytes: the weights once and the K/V of the tokens it reads,
 a shared prefix once) summed, over the summed time of the ``Engine.step``
-spans."""
+spans.  The bytes and operations are the model family's."""
 from bench.harness import arith
 
 
@@ -10,8 +10,8 @@ def read(ctx):
     steps = ctx.get("steps", ())
     if not steps:
         return None
-    m = ctx["sizes"]
-    least = sum(arith.bound_s(arith.decode_bytes(m, unique),
-                              arith.decode_flops(m, rows, keys))
+    m, fam = ctx["sizes"], ctx["family"]
+    least = sum(arith.bound_s(fam.decode_bytes(m, unique),
+                              fam.decode_flops(m, rows, keys))
                 for _, _, rows, keys, _, unique in steps)
     return 100 * least / sum(t1 - t0 for t0, t1, *_ in steps)

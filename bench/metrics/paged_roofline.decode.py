@@ -1,7 +1,8 @@
 """The paged decode kernel's share of its roofline, in %: the least time of
-each launch (one per layer per decode step: q and the output once, the K/V
-of the tokens its rows read with a shared prefix once, the table) summed,
-over the device time of ``paged_fwd`` and ``paged_merge`` in the trace."""
+each launch (one per attention layer per decode step: q and the output
+once, the K/V of the tokens its rows read with a shared prefix once, the
+table; the layers are the model family's) summed, over the device time of
+``paged_fwd`` and ``paged_merge`` in the trace."""
 from bench.harness import arith
 
 
@@ -12,9 +13,9 @@ def read(ctx):
         if trace is not None else None
     if not steps or not secs:
         return None
-    m = ctx["sizes"]
-    least = m["n_layers"] * sum(
-        arith.paged_bound_s(m["n_heads"], m["n_kv_heads"], m["head_dim"],
-                            rows, keys, longest, unique, ctx["page_tokens"])
-        for _, _, rows, keys, longest, unique in steps)
+    least = sum(n * sum(arith.paged_bound_s(h, hkv, d, rows, keys, longest,
+                                            unique, ctx["page_tokens"])
+                        for _, _, rows, keys, longest, unique in steps)
+                for n, h, hkv, d in
+                ctx["family"].attention_layers(ctx["sizes"]))
     return 100 * least / secs

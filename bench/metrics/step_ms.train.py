@@ -1,11 +1,11 @@
-"""Median milliseconds of one train step: from ``next(pipeline)`` to the
-loss read back after ``train_step`` (the benchmark's spans)."""
+"""Median milliseconds of one train step: the time between the ends of
+consecutive steps on the card (an event after each step, the first from
+the window's open).  The window sends steps ahead, so this is the card's
+pace; a host stall shows only where the queue ran dry."""
 import statistics
 
 
 def read(ctx):
-    spans = ctx.get("spans", ())
-    nxt = [s for s in spans if s[0] == "pipeline.next"]
-    stp = [s for s in spans if s[0] == "train_step"]
-    steps = [b[2] - a[1] for a, b in zip(nxt, stp)]
+    ends = ctx.get("step_ends") or []
+    steps = [b - a for a, b in zip([ctx.get("window_start")] + ends, ends)]
     return statistics.median(steps) * 1e3 if steps else None

@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     import numpy as np
     import torch
-    from bench.harness import cell, serve, traffic, weights
+    from bench.harness import cell, family, serve, traffic, weights
 
     w = next(x for x in cell.benchmark()["workloads"]
              if x["name"] == args.workload)
@@ -42,8 +42,9 @@ def main(argv=None) -> int:
     config = weights.load_config(w["config"])
     device = torch.device("cuda", 0)
     base = traffic.load(w["traffic"])
-    m = weights.sizes(config)
-    _, eng = serve.build(m, config, args.seed, device)
+    fam = family.of(config)
+    m = fam.sizes(config)
+    _, eng = serve.build(fam, m, config, args.seed, device)
 
     class Counted(serve.Server):
         queue: list = []

@@ -29,7 +29,7 @@ def mix(cell: str) -> dict:
     name = {SERVE: "serve.prefix-chat", TRAIN: "train.2k"}[cell]
     m = traffic.load(name)
     if m["kind"] == "train":
-        return {**m, "seq_len": 64, "corpus_steps": 8}
+        return {**m, "global_batch": 8, "seq_len": 64, "corpus_steps": 8}
     small = {"output": {"median": 6, "sigma": 0.3, "min": 4, "max": 8},
              "suffix": {"median": 16, "sigma": 0.8, "min": 8, "max": 48},
              "prefixes": [{**p, "tokens": p["tokens"] // 16}

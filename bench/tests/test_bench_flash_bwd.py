@@ -5,12 +5,13 @@ import os
 
 import pytest
 
+from bench.families import dense
 from bench.harness import arith, cell, weights
 from bench.harness.trace import Trace
 
 METRIC = "flash_bwd_roofline.train"
 TRAIN = "smollm-360m.train.2k"
-SMOLLM = weights.sizes(weights.load_config("smollm-360m"))
+SMOLLM = dense.sizes(weights.load_config("smollm-360m"))
 
 
 def _module():
@@ -41,8 +42,8 @@ def test_the_bound_of_one_call_at_the_train_microbatch():
 
 def test_it_reads_the_backward_kernels_alone():
     read = cell.reader(METRIC)
-    ctx = {"sizes": SMOLLM, "steps": 3, "batch": 8, "seq_len": 2048,
-           "accum_steps": 2}
+    ctx = {"sizes": SMOLLM, "family": dense, "steps": 3, "batch": 8,
+           "seq_len": 2048, "accum_steps": 2}
     calls = 3 * 2 * SMOLLM["n_layers"]
     least = calls * _module().bound_s(4, 2048, 15, 5, 64)
     ops = [("void (anonymous namespace)::flash_bwd<64>(CUtensorMap_st, ...)",

@@ -5,6 +5,7 @@ the port's optimizer."""
 import numpy as np
 import torch
 
+from bench.families import dense
 from bench.harness import weights
 from bench.reference import dense as ref
 from bench.tests import smoke
@@ -13,7 +14,7 @@ from bench.tests import smoke
 def port(name, **kw):
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import get_model
-    m = weights.sizes(smoke.config(name))
+    m = dense.sizes(smoke.config(name))
     cfg = ModelConfig(name="smoke", arch_kind="dense", param_dtype="float32",
                       compute_dtype="float32", **kw, **m)
     return m, get_model(cfg)
@@ -21,7 +22,7 @@ def port(name, **kw):
 
 def test_served_logits_match_the_port_forward():
     m, model = port(smoke.SERVE)
-    params = weights.draw(m, 7, torch.float32, smoke.CPU)
+    params = weights.draw(dense.shapes(m), 7, torch.float32, smoke.CPU)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, m["vocab"], (2, 40)))
     want = model.forward(params, {"tokens": toks})
@@ -35,7 +36,7 @@ def test_loss_grads_and_adamw_match_the_port_step():
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainHyper, make_grad_fn
     m, model = port(smoke.TRAIN)
-    params = weights.draw(m, 8, torch.float32, smoke.CPU)
+    params = weights.draw(dense.shapes(m), 8, torch.float32, smoke.CPU)
     rows = torch.from_numpy(np.random.default_rng(1).integers(
         0, m["vocab"], (4, 33)))
     tok, lab = rows[:, :-1], rows[:, 1:]

@@ -1,6 +1,8 @@
 """Traffic is a function of the seed: the same seed gives the same
 requests, another seed the same sizes in the same order, with other
 tokens."""
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -51,3 +53,32 @@ def test_corpus_is_a_function_of_the_seed():
     assert np.array_equal(a, traffic.corpus(512, 16, 65, smoke.SEED))
     assert not np.array_equal(a, traffic.corpus(512, 16, 65, 1))
     assert a.min() >= 0 and a.max() < 512
+
+
+def test_the_chat_mix_draws_the_requests_it_drew_before():
+    # a digest of the full and the small chat mix's prompts and requests,
+    # taken from the generator before a mix could go without prefixes
+    h = hashlib.sha256()
+    for spec in (traffic.load("serve.prefix-chat"), smoke.mix(smoke.SERVE)):
+        mix = traffic.serve_mix(spec, 32768, smoke.SEED, 51)
+        for p in mix.prefixes:
+            h.update(p.tobytes())
+        for r in mix.warmup + mix.requests:
+            h.update(repr((r.prefix, r.max_new, r.due)).encode())
+            h.update(r.suffix.tobytes())
+    assert h.hexdigest() == \
+        "419c245860791c67fe921bb79471d2e4be876409eb772831ff799b022ee499fb"
+
+
+def test_a_mix_without_prefixes_draws_whole_prompts_from_the_suffix():
+    spec = traffic.load("serve.prefix-chat")
+    shared = traffic.serve_mix(spec, 32768, smoke.SEED, 40)
+    alone = traffic.serve_mix({**spec, "prefixes": []}, 32768, smoke.SEED,
+                              40)
+    assert alone.prefixes == []
+    reqs = alone.warmup + alone.requests
+    before = shared.warmup + shared.requests
+    assert all(r.prefix is None for r in reqs)
+    # the same schedule and sizes: only the prefixes are gone
+    assert [(len(r.suffix), r.max_new, r.due) for r in reqs] == \
+        [(len(r.suffix), r.max_new, r.due) for r in before]
