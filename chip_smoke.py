@@ -37,7 +37,11 @@ Phases, one line each; a failing phase raises and nothing catches it:
    dims 32 and 128, non-causal, with windows and with Sq != Skv, each
    call counted; one backward call at the training shape against the
    library call's backward and the plain recompute, and forward and
-   backward of the op against the library call's.
+   backward of the op against the library call's; the flash kernels at
+   latent attention's head sizes (q/k 192, v 128) at moonlight-16b-a3b's
+   training microbatch (B=2 S=4096 H=16) and ragged, non-causal and
+   Sq != Skv shapes, forward and gradients checked, forward and one
+   backward call timed.
 3. parity: qwen2-7b at full width, 2 layers, fp32 (TF32 off): the engine's
    greedy tokens (kernels) equal teacher-forced greedy tokens from the
    port's kernel-free ``dense.forward``.
@@ -60,6 +64,12 @@ Phases, one line each; a failing phase raises and nothing catches it:
    (flash) equals ``decode_step`` stepped token by token (no kernel)
    within 2e-3, and so do the greedy tokens; the share of routing choices
    the two agree on and the smallest top-k margin are printed.
+5c. mla_parity: moonlight-16b-a3b as its benchmark cell holds it (14
+   layers, experts 0-7 of 64, vocab 20,480), weights from the
+   benchmark's draw: the bf16 ``forward`` (flash at q/k 192, v 128) on
+   2 × 4096 tokens against the fp32 reference of
+   ``bench/reference/mla_moe.py``: the logits' gap and, per expert layer,
+   the share of choices routed differently.
 6. zamba2_serve: zamba2-1.2b at full width and depth (38 layers), bf16,
    random weights from seed 0: ``make_prefill_step`` on 4 prompts of 4096
    tokens (38 SSD-scan and 6 flash launches per call), then
@@ -200,6 +210,17 @@ TRAIN_FLASH_SHAPE = dict(b=4, s=2048, h=15, hkv=5, d=64)  # smollm train
 # on an H100
 FLASH_BWD_TOL = 2e-2
 MOE_FLASH_SHAPE = dict(b=4, s=4096, h=16, hkv=16, d=128)  # olmoe prefill
+# moonlight-16b-a3b's training microbatch: latent attention scores over
+# 128 + 64 dims (dk) and sums values of 128 (dv)
+MLA_FLASH_SHAPE = dict(b=2, s=4096, h=16, hkv=16, dk=192, dv=128)
+# its benchmark configuration (bench/configs/), which mla_parity runs
+MLA_CONFIG = "moonlight-16b-a3b.ep8-pp2"
+# mla_parity's fp32 forward against the reference: the two sum in other
+# orders, so a choice whose s + b ties the next to fp32 rounding routes
+# differently in a later layer (on an H100: 1e-4 of the choices or fewer,
+# 3.2e-3 of the logits' norm, where bf16 reads 8.6e-2); a fault of the
+# model's code moves every token
+MLA_FP32_GAP = 1e-2
 # command-r at a 2048-token prompt; llava: 576 patches + 64 text tokens
 CMDR_FLASH_SHAPE = dict(b=1, s=2048, h=64, hkv=8, d=128)
 LLAVA_PATCHES, LLAVA_TEXT = 576, 64
@@ -556,6 +577,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     train_fb = flash_train_times(gen)
     log("kernels", kernel="flash_attention", **train_fb)
     flash_shapes[2].update(train_fb)
+    mla = flash_mla_times(gen)
 
     kernels = {
         "flash_attention": {
@@ -579,6 +601,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
             "shape": f"B={ts['b']} S={ts['s']} H={ts['h']} Hkv={ts['hkv']} "
                      f"D={ts['d']} causal bf16"},
     }
+    # the (192, 128) instantiations are rows of the two kernels
+    flash_shapes.append(mla["fwd"])
+    kernels["flash_attention_bwd"]["mla"] = mla["bwd"]
     kernels["paged_attention"] = paged_kernel(gen)
     kernels["mamba2_scan"] = ssd_kernel(gen)
     for kern in kernels.values():
@@ -586,6 +611,66 @@ def phase_kernels(gen: torch.Generator) -> dict:
                           ("name", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by")})
     return kernels
+
+
+def randn_bf16(gen: torch.Generator, b: int, s: int, h: int, d: int):
+    return torch.randn((b, s, h, d), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def plain_grads(q, k, v, g, **mask) -> tuple:
+    """dq, dk, dv by autograd through the plain forward, in fp32."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    inputs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    out = attention_plain(*inputs, **mask)
+    return torch.autograd.grad(out, inputs, g.float())
+
+
+def flash_bwd_case(gen: torch.Generator, c: dict, fwd_errs=None) -> tuple:
+    """One case of the flash op's backward (``c``: b, s (keys), sq
+    (queries, default s), h, hkv, d, dv (v's head size, default d),
+    causal, window): the op's gradients through the kernels against the
+    plain fp32 recompute, each within FLASH_BWD_TOL of the reference's
+    norm and of its largest entry.  With ``fwd_errs`` (a list) the
+    forward kernel is held against the plain version first, its largest
+    difference appended.  Returns (the case's name, the worst relative
+    difference)."""
+    from repro_torch.kernels.flash_attention import attention_plain, \
+        flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fk
+    mask = dict(causal=c.get("causal", True), sliding_window=c.get("window"))
+    sq, dv = c.get("sq", c["s"]), c.get("dv", c["d"])
+    q = randn_bf16(gen, c["b"], sq, c["h"], c["d"])
+    k, v = randn_bf16(gen, c["b"], c["s"], c["hkv"], c["d"]), \
+        randn_bf16(gen, c["b"], c["s"], c["hkv"], dv)
+    g = randn_bf16(gen, c["b"], sq, c["h"], dv)
+    dims = c["d"] if dv == c["d"] else f"{c['d']}/{dv}"
+    what = f"flash bwd B={c['b']} Sq={sq} Skv={c['s']} " \
+           f"H={c['h']}/{c['hkv']} D={dims} causal={mask['causal']} " \
+           f"window={mask['sliding_window']}"
+    if fwd_errs is not None:
+        out = fk.flash_attention_fwd(q, k, v, **mask)
+        torch.cuda.synchronize()
+        fwd_errs.append(max_err(out, attention_plain(q, k, v, **mask),
+                                torch.bfloat16, what))
+    inputs = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*inputs, **mask), inputs, g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got,
+                          plain_grads(q, k, v, g, **mask)):
+        a = a.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+        by_norm = ((a - r).norm() / r.norm()).item()
+        by_max = ((a - r).abs().max() / r.abs().max()).item()
+        if max(by_norm, by_max) > FLASH_BWD_TOL:
+            raise AssertionError(
+                f"{what}: {name} differs from the plain recompute by "
+                f"{by_norm:.3e} of its norm, {by_max:.3e} of its "
+                f"largest entry (tolerance {FLASH_BWD_TOL})")
+        worst = max(worst, by_norm, by_max)
+    return what, worst
 
 
 def flash_train_times(gen: torch.Generator) -> dict:
@@ -599,18 +684,11 @@ def flash_train_times(gen: torch.Generator) -> dict:
     the host time of one call of the backward's and the forward's
     wrapper."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import attention_plain, \
-        flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fk
 
     def rnd(b, s, h, d):
-        return torch.randn((b, s, h, d), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-
-    def plain_grads(q, k, v, g, **mask):
-        inputs = [t.detach().float().requires_grad_() for t in (q, k, v)]
-        out = attention_plain(*inputs, **mask)
-        return torch.autograd.grad(out, inputs, g.float())
+        return randn_bf16(gen, b, s, h, d)
 
     ts = TRAIN_FLASH_SHAPE
     checks = [dict(ts), dict(b=2, s=300, h=4, hkv=2, d=32),
@@ -622,37 +700,10 @@ def flash_train_times(gen: torch.Generator) -> dict:
               dict(b=1, s=300, sq=77, h=4, hkv=2, d=64, causal=False)]
     launches0, errs = fk.bwd_launches, {}
     for c in checks:
-        mask = dict(causal=c.get("causal", True),
-                    sliding_window=c.get("window"))
-        q = rnd(c["b"], c.get("sq", c["s"]), c["h"], c["d"])
-        k, v = rnd(c["b"], c["s"], c["hkv"], c["d"]), \
-            rnd(c["b"], c["s"], c["hkv"], c["d"])
-        g = rnd(c["b"], c.get("sq", c["s"]), c["h"], c["d"])
-        inputs = [t.requires_grad_() for t in (q, k, v)]
-        got = torch.autograd.grad(flash_attention(*inputs, **mask), inputs,
-                                  g)
-        torch.cuda.synchronize()
-        what = f"flash bwd B={c['b']} Sq={c.get('sq', c['s'])} " \
-               f"Skv={c['s']} H={c['h']}/{c['hkv']} D={c['d']} " \
-               f"causal={mask['causal']} window={mask['sliding_window']}"
-        worst = 0.0
-        for name, a, r in zip(("dq", "dk", "dv"), got,
-                              plain_grads(q, k, v, g, **mask)):
-            a = a.float()
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"{what}: non-finite {name}")
-            by_norm = ((a - r).norm() / r.norm()).item()
-            by_max = ((a - r).abs().max() / r.abs().max()).item()
-            if max(by_norm, by_max) > FLASH_BWD_TOL:
-                raise AssertionError(
-                    f"{what}: {name} differs from the plain recompute by "
-                    f"{by_norm:.3e} of its norm, {by_max:.3e} of its "
-                    f"largest entry (tolerance {FLASH_BWD_TOL})")
-            worst = max(worst, by_norm, by_max)
+        what, worst = flash_bwd_case(gen, c)
         errs[what] = worst
         log("kernels", kernel="flash_attention_bwd", case=repr(what),
             rel_err=f"{worst:.3e}")
-        del q, k, v, g, inputs, got
     if fk.bwd_launches - launches0 != len(checks):
         raise AssertionError(f"flash bwd: {fk.bwd_launches - launches0} "
                              f"kernel calls for {len(checks)} backwards")
@@ -704,6 +755,83 @@ def flash_train_times(gen: torch.Generator) -> dict:
             "bwd_plain_ms": plain, "bwd_bound_ms": t_bound,
             "bwd_bound_by": by, "bwd_flops": flops, "bwd_bytes": nbytes,
             "bwd_max_rel_err": max(errs.values())}
+
+
+def flash_mla_times(gen: torch.Generator) -> dict:
+    """The flash kernels at latent attention's head sizes (q and k 192, v
+    128): the forward against the plain version and the op's gradients
+    against the plain fp32 recompute, at moonlight-16b-a3b's training
+    microbatch and at ragged, non-causal and Sq != Skv shapes; then at the
+    microbatch the forward and one backward call timed against the plain
+    version and, where it takes the shape, the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    ms_ = MLA_FLASH_SHAPE
+    dk, dv = ms_["dk"], ms_["dv"]
+    checks = [dict(ms_), dict(b=2, s=300, h=4, hkv=4),
+              dict(b=1, s=200, h=16, hkv=4, causal=False),
+              dict(b=1, s=77, sq=200, h=4, hkv=2),
+              dict(b=1, s=300, sq=77, h=4, hkv=2, causal=False)]
+    fwd_errs, bwd_errs = [], []
+    launches0, bwd0 = fk.launches, fk.bwd_launches
+    for c in checks:
+        what, worst = flash_bwd_case(gen, {**c, "d": dk, "dv": dv},
+                                     fwd_errs)
+        bwd_errs.append(worst)
+        log("kernels", kernel="flash_attention_mla", case=repr(what),
+            fwd_max_abs_err=f"{fwd_errs[-1]:.3e}", bwd_rel_err=f"{worst:.3e}")
+    # each check: one forward call, and the op's forward and backward
+    if (fk.launches - launches0, fk.bwd_launches - bwd0) != \
+            (2 * len(checks), len(checks)):
+        raise AssertionError("flash mla: the kernels were not called "
+                             "once per check")
+
+    b, s, h, hkv = (ms_[x] for x in ("b", "s", "h", "hkv"))
+    q, k, v, g = (randn_bf16(gen, b, s, n, d) for n, d in
+                  ((h, dk), (hkv, dk), (hkv, dv), (h, dv)))
+    out, lse = fk.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    fns = {"kernel": lambda: fk.flash_attention_fwd(q, k, v, causal=True),
+           "bwd": lambda: fk.flash_attention_bwd(q, k, v, out, lse, g)}
+    try:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = g.transpose(1, 2)
+        fns["library"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        fns["library_bwd"] = lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True)
+    except RuntimeError as e:       # no backend takes dk != dv
+        log("kernels", kernel="flash_attention_mla",
+            library=f"refused: {str(e)[:100]!r}")
+    ms = cuda_ms_turns(fns, rounds=6)
+    plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True), 3, 1)
+    plain_bwd = cuda_ms(lambda: plain_grads(q, k, v, g, causal=True), 3, 1)
+    pairs = s * (s + 1) // 2
+    shape = f"B={b} S={s} H={h} Hkv={hkv} D={dk}/{dv} causal bf16"
+    flops = 2 * b * h * pairs * (dk + dv)
+    nbytes = 2 * b * s * (h * dk + hkv * dk + hkv * dv + h * dv)
+    t_fwd, by_fwd = bound(nbytes, flops, PEAK_FLOPS[torch.bfloat16])
+    bflops = 2 * b * h * pairs * (3 * dk + 2 * dv)
+    bbytes = 2 * b * s * (2 * h * (dk + dv) + 2 * hkv * (dk + dv))
+    t_bwd, by_bwd = bound(bbytes, bflops, PEAK_FLOPS[torch.bfloat16])
+    out = {"fwd": {"path": "moonlight-16b-a3b train", "shape": shape,
+                   "max_abs_err": max(fwd_errs), "ms": ms["kernel"],
+                   "kernel_ms": ms["kernel"], "plain_ms": plain,
+                   "library_ms": ms.get("library"), "bound_ms": t_fwd,
+                   "bound_by": by_fwd, "bytes": nbytes, "flops": flops},
+           "bwd": {"path": "moonlight-16b-a3b train", "shape": shape,
+                   "max_rel_err": max(bwd_errs), "ms": ms["bwd"],
+                   "plain_ms": plain_bwd,
+                   "library_ms": ms.get("library_bwd"), "bound_ms": t_bwd,
+                   "bound_by": by_bwd, "bytes": bbytes, "flops": bflops}}
+    for what, kern in out.items():
+        log("kernels", kernel=f"flash_attention_mla {what}",
+            **{k: kern[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")})
+    return out
 
 
 def paged_kernel(gen: torch.Generator) -> dict:
@@ -1559,6 +1687,90 @@ def phase_moe_parity(gen: torch.Generator) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_mla_parity(gen: torch.Generator) -> dict:
+    """moonlight-16b-a3b as its benchmark cell trains it (stage 1 of 2: 14
+    layers at full width, experts 0-7 of 64 held, the vocabulary's first
+    20,480), weights from the benchmark's draw: the program's bf16 forward
+    (the flash kernels at (192, 128)) against the plain fp32 reference on
+    one microbatch of 2 × 4096 tokens.  The logits' gap, and per expert
+    layer the share of choices that the two route differently
+    (`layers.ROUTE_LOG` against the reference's own routing): the first
+    layer's inputs differ by bf16's rounding alone, the later ones also by
+    the flips before them.  The same forward in fp32 (the einsum path: the
+    flash kernels are bf16) holds the model's code to the reference: no
+    choice of the first expert layer routed differently, and the logits
+    within MLA_FP32_GAP of their norm."""
+    import torch.nn.functional as F
+    from bench.families import mla_moe as fam
+    from bench.harness import weights
+    from bench.reference import mla_moe as ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+
+    config = weights.load_config(MLA_CONFIG)
+    m = fam.sizes(config)
+    params = weights.draw(fam.shapes(m), 1, torch.float32,
+                          torch.device("cuda"))
+    model = get_model(fam.program_config(config, m, "training"))
+    tok = torch.randint(0, m["vocab"], (2, MLA_FLASH_SHAPE["s"]),
+                        generator=gen, device="cuda")
+    exact = get_model(model.cfg.replace(compute_dtype="float32",
+                                        attn_impl="xla"))
+    ref.exact_fp32()
+    L.ROUTE_LOG, ref.ROUTE_LOG = [], []
+    try:
+        with torch.no_grad():
+            fk.launches = 0
+            got = model.forward(params, {"tokens": tok}).float()
+            launched = fk.launches
+            routes = list(L.ROUTE_LOG)
+            L.ROUTE_LOG.clear()
+            got32 = exact.forward(params, {"tokens": tok})
+            routes32 = list(L.ROUTE_LOG)
+            want, _ = ref.forward(params, m, tok)
+        theirs = list(ref.ROUTE_LOG)
+    finally:
+        L.ROUTE_LOG = ref.ROUTE_LOG = None
+    if launched != m["n_layers"]:
+        raise AssertionError(f"mla_parity: {launched} flash launches for "
+                             f"{m['n_layers']} layers")
+    first, last = m["held_first"], m["held_first"] + m["held"]
+
+    def flip_shares(ours):
+        """Per expert layer: the share of choices routed differently, and
+        that of the choices to held experts."""
+        flips, held = [], []
+        for p, r in zip(ours, theirs):
+            one = [F.one_hot(x["top_e"], m["n_experts"]).sum(1)
+                   for x in (p, r)]
+            flips.append(1 - float((one[0] * one[1]).sum())
+                         / one[1].sum().item())
+            hp, hr = (o[:, first:last] for o in one)
+            held.append(float((hp - hr).abs().sum()) / 2
+                        / max(float(hr.sum()), 1.0))
+        return flips, held
+
+    def rel_gap(x):
+        return float((x.reshape(want.shape) - want).norm() / want.norm())
+
+    flips, held_flips = flip_shares(routes)
+    flips32, _ = flip_shares(routes32)
+    log("mla_parity", layers=len(routes),
+        logits_rel_gap=f"{rel_gap(got):.3e}",
+        flip_share_first=f"{flips[0]:.6f}",
+        flip_share_by_layer=",".join(f"{f:.4f}" for f in flips),
+        held_flip_share_by_layer=",".join(f"{f:.4f}" for f in held_flips),
+        fp32_logits_rel_gap=f"{rel_gap(got32):.3e}",
+        fp32_flip_share_by_layer=",".join(f"{f:.5f}" for f in flips32))
+    if flips32[0] or rel_gap(got32) > MLA_FP32_GAP:
+        raise AssertionError(f"mla_parity: the fp32 forward is "
+                             f"{rel_gap(got32):.3e} of the logits' norm "
+                             f"from the reference, {flips32[0]:.2e} of the "
+                             "first layer's choices routed differently")
+    return {"moonlight-16b-a3b mla_parity": {"flash_attention": launched}}
 
 
 def phase_moe_serve(gen: torch.Generator, profile: bool = False) -> dict:
@@ -2834,14 +3046,16 @@ def main() -> int:
         return 0
     # with no arguments every phase runs and the result lines are printed;
     # naming phases (kernels, parity, serve, dense_parity, zamba2_parity,
-    # zamba2_serve, moe_parity, moe_serve, whisper_parity, whisper_serve,
+    # zamba2_serve, moe_parity, moe_serve, mla_parity, whisper_parity,
+    # whisper_serve,
     # xlstm_parity, xlstm_serve, xlstm_train, train_parity, train,
     # pod_sync, dryrun, sharded_train, profile)
     # runs just those, to debug or to trace a serve or train phase; profile
     # alone traces the qwen2-7b serve phase
     phases = sys.argv[1:] or ["kernels", "parity", "serve", "dense_parity",
                               "zamba2_parity", "zamba2_serve", "moe_parity",
-                              "moe_serve", "whisper_parity", "whisper_serve",
+                              "moe_serve", "mla_parity", "whisper_parity",
+                              "whisper_serve",
                               "xlstm_parity", "xlstm_serve", "xlstm_train",
                               "train_parity", "train", "pod_sync", "dryrun",
                               "sharded_train"]
@@ -2881,6 +3095,8 @@ def main() -> int:
     if "moe_serve" in phases:
         launches["olmoe-1b-7b serve"] = timed("moe_serve", phase_moe_serve,
                                               gen(0), profile)
+    if "mla_parity" in phases:
+        launches.update(timed("mla_parity", phase_mla_parity, gen(11)))
     if "whisper_parity" in phases:
         launches.update(timed("whisper_parity", phase_whisper_parity,
                               gen(8)))

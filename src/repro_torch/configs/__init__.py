@@ -1,16 +1,17 @@
 """Config registry of the port: ``--arch <id>`` → ModelConfig.
 
-Every arch of the JAX package, in its order.  Each module exports CONFIG
-(the published configuration) and smoke() (a reduced same-family config
-for CPU tests), as in the JAX package.
+Every arch of the JAX package, in its order (``ARCHS``, the dry-run's
+cells), then the archs of the port alone (``PORT_ARCHS``).  Each module
+exports CONFIG (the published configuration) and smoke() (a reduced
+same-family config for CPU tests), as in the JAX package.
 """
 from typing import List
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 
 from . import (command_r_35b, granite_moe_3b_a800m, llava_next_34b,
-               mistral_large_123b, olmoe_1b_7b, qwen2_7b, smollm_360m,
-               whisper_medium, xlstm_1p3b, zamba2_1p2b)
+               mistral_large_123b, moonlight_16b_a3b, olmoe_1b_7b, qwen2_7b,
+               smollm_360m, whisper_medium, xlstm_1p3b, zamba2_1p2b)
 
 _MODULES = {
     "mistral-large-123b": mistral_large_123b,
@@ -27,11 +28,19 @@ _MODULES = {
 
 ARCHS: List[str] = list(_MODULES)
 
+# no JAX config beside them, so no dry-run cell
+_PORT_MODULES = {
+    "moonlight-16b-a3b": moonlight_16b_a3b,
+}
+PORT_ARCHS: List[str] = list(_PORT_MODULES)
+
 
 def _module(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
-    return _MODULES[name]
+    mod = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if mod is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{ARCHS + PORT_ARCHS}")
+    return mod
 
 
 def get_config(name: str) -> ModelConfig:
@@ -61,5 +70,5 @@ def cells():
     return out
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "get_config",
-           "get_smoke_config", "get_shape", "cells"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "PORT_ARCHS",
+           "get_config", "get_smoke_config", "get_shape", "cells"]

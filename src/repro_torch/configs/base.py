@@ -1,7 +1,11 @@
 """Model/architecture configuration schema (the port's own copy).
 
 Field for field the same as the JAX package's schema, so a config built
-here describes the same model there.  One `ModelConfig` describes any architecture in the assigned pool: dense GQA
+here describes the same model there.  Families of the port alone
+(``arch_kind`` "mla_moe": latent attention and DeepSeek-V3's experts)
+extend it in subclasses, `MLAModelConfig` and `DeepSeekMoEConfig`, whose
+fields the JAX package's configs never carry; the knobs that the shared
+MoE layer reads are class attributes of `MoEConfig`, not fields.  One `ModelConfig` describes any architecture in the assigned pool: dense GQA
 transformers, MoE, Mamba2/xLSTM SSMs, the Zamba2 hybrid, Whisper enc-dec,
 and the LLaVA VLM backbone.  Family-specific knobs live in optional
 sub-configs; `arch_kind` drives which forward function the registry picks.
@@ -25,9 +29,58 @@ class MoEConfig:
     # axis); padded experts receive no routing weight and no tokens
     padded_experts: Optional[int] = None
 
+    # DeepSeek-V3's knobs at their olmoe / granite values: class
+    # attributes, not fields (see the module's docstring);
+    # `DeepSeekMoEConfig` makes them fields
+    scoring = "softmax"             # softmax (Switch balance loss) |
+                                    # sigmoid (a bias, sequence-wise loss)
+    routed_scale = 1.0              # the routed experts' output scale
+    d_shared = 0                    # shared experts' total width, 0: none
+    held_first = 0                  # first expert id held here
+    held = None                     # experts held here (None: all)
+
     @property
     def e_pad(self) -> int:
         return self.padded_experts or self.num_experts
+
+    @property
+    def n_held(self) -> int:
+        """Experts whose weights this device holds."""
+        return self.e_pad if self.held is None else self.held
+
+
+@dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """DeepSeek-V3's routed experts (Moonlight): sigmoid scores over all
+    ``num_experts``, the top k chosen by score + a correction bias (a
+    parameter the train step leaves alone), weighted by the scores
+    renormalised over the k and × ``routed_scale``; ``d_shared`` wide
+    shared experts on every token; the sequence-wise balance loss
+    (× ``router_aux_weight``).  The device holds experts
+    [``held_first``, ``held_first + held``) of the router's: the share of
+    one rank of expert parallelism."""
+    scoring: str = "sigmoid"
+    routed_scale: float = 1.0
+    d_shared: int = 0
+    held_first: int = 0
+    held: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention without a query LoRA (DeepSeek-V2/V3):
+    q = y·W_q, 16 heads of ``qk_nope`` + ``qk_rope``; [c_kv | k_rope] =
+    y·W_kva; c_kv normed (its own scale, ε ``kv_norm_eps``) and lifted to
+    [k_nope | v] per head by W_kvb; one ``k_rope`` shared by all heads."""
+    kv_rank: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
+    kv_norm_eps: float = 1e-6
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope + self.qk_rope
 
 
 @dataclass(frozen=True)
@@ -109,6 +162,8 @@ class ModelConfig:
     # per-arch logical→mesh rule overrides (e.g. heads→None when the head
     # count does not divide the model axis); tuple-of-pairs for hashability
     rules_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
+    # leading layers without experts: a field of `MLAModelConfig` alone
+    first_k_dense = 0
 
     @property
     def head_dim_(self) -> int:
@@ -182,6 +237,23 @@ class ModelConfig:
         full_ff = self.moe.num_experts * 3 * d * self.moe.d_expert
         active_ff = self.moe.top_k * 3 * d * self.moe.d_expert
         return self.param_count() - self.n_layers * (full_ff - active_ff)
+
+
+@dataclass(frozen=True)
+class MLAModelConfig(ModelConfig):
+    """A DeepSeek-V3 block (``arch_kind`` "mla_moe"): latent attention
+    (``mla``), the first ``first_k_dense`` layers a SwiGLU of ``d_ff``,
+    the rest ``moe`` (a `DeepSeekMoEConfig`).  ``n_layers`` counts both."""
+    mla: MLAConfig = MLAConfig()
+    first_k_dense: int = 0
+
+    def param_count(self) -> int:
+        from ..models import get_model
+        return get_model(self).param_count()
+
+    def active_param_count(self) -> int:
+        from ..models import get_model
+        return get_model(self).active_param_count()
 
 
 @dataclass(frozen=True)

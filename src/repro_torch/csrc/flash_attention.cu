@@ -41,6 +41,12 @@
 //    epilogue also stores each row's log-sum-exp, m + log2(l) taken back
 //    to base e, for the backward kernel (flash_attention_bwd.cu); 4 bytes
 //    a row against the output's 2·D.  Null costs a branch per row.
+//  * V's head may be narrower than Q's and K's (`DV` < `D`): latent
+//    attention (MLA, Moonlight / DeepSeek-V3) scores over 192 dims (128
+//    "nope" + 64 rotary) and sums values of 128.  At (192, 128) the Q tile
+//    and two stages of K and V take 129 KB of shared memory, so one block
+//    holds an SM (two at D = DV <= 128); the registers are those of
+//    D = 128, whose accumulator is the same 64 x 128.
 //
 // fp32 inputs take `flash_fp32`, FMAs out of shared memory: a dtype
 // dispatch inside this library, not a fallback.  Only the fp32 parity
@@ -69,40 +75,48 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ------------------------------------------------------------ bf16, wgmma
-template <int D>
+// D: the head size of Q and K; DV: that of V and the output
+template <int D, int DV>
 struct Bf16Cfg {
+  static_assert((D >= 64) == (DV >= 64), "one swizzle for all tiles");
   static constexpr int BQ = 128;                  // q rows per block
   static constexpr int BK = 64;                   // kv rows per tile
   static constexpr int THREADS = 256;             // two warpgroups
   static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int SWE = SWB / 2;             // elements per span
-  static constexpr int NSUB = D / SWE;            // column sub-tiles
+  static constexpr int NSUB = D / SWE;            // column sub-tiles, Q / K
+  static constexpr int NSUB_V = DV / SWE;         // column sub-tiles, V
+  static constexpr int NSUB_MAX = NSUB > NSUB_V ? NSUB : NSUB_V;
   static constexpr int LAYOUT = SWB == 128 ? 1 : 2;
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
+  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int V_BYTES = BK * DV * 2;
   static constexpr int STAGES = 2;
   // 1 KB of slack to align the tiles to the swizzle atom, then the tiles,
   // then three barriers
   static constexpr int SMEM =
-      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 3 * 8;
+      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 3 * 8;
+  // blocks an SM holds: two where both fit in its 228 KB
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(256, 2)
+template <int D, int DV>
+__global__ void __launch_bounds__(256, (Bf16Cfg<D, DV>::MIN_BLOCKS))
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv,
            __nv_bfloat16* __restrict__ o, Strides4 os,
            float* __restrict__ lse, int group, int Sq, int Skv, int causal,
            int window, float sl2) {
-  using C = Bf16Cfg<D>;
+  using C = Bf16Cfg<D, DV>;
   constexpr int BQ = C::BQ, BK = C::BK, SWB = C::SWB, SWE = C::SWE;
+  constexpr int KV_STAGE = C::K_BYTES + C::V_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   unsigned char* sQ = smem_raw + ((1024 - (raw & 1023)) & 1023);
   unsigned char* sKV = sQ + C::Q_BYTES;   // stage s: K, then V
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      sKV + C::STAGES * 2 * C::KV_BYTES);  // full[0], full[1], q
+      sKV + C::STAGES * KV_STAGE);  // full[0], full[1], q
   uint64_t* qbar = bars + C::STAGES;
 
   const int tid = threadIdx.x;
@@ -119,15 +133,17 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
 
   const CUtensorMap *mk = &tk, *mv = &tv;
   auto load_kv = [=](int stage, int t) {
-    unsigned char* dk = sKV + stage * 2 * C::KV_BYTES;
-    unsigned char* dv = dk + C::KV_BYTES;
-    hopper::mbar_expect_tx(bars + stage, 2 * C::KV_BYTES);
+    unsigned char* dk = sKV + stage * KV_STAGE;
+    unsigned char* dv = dk + C::K_BYTES;
+    hopper::mbar_expect_tx(bars + stage, KV_STAGE);
 #pragma unroll
-    for (int sub = 0; sub < C::NSUB; ++sub) {
-      hopper::tma_load_4d(dk + sub * BK * SWB, mk, bars + stage, sub * SWE,
-                          hk, t * BK, b);
-      hopper::tma_load_4d(dv + sub * BK * SWB, mv, bars + stage, sub * SWE,
-                          hk, t * BK, b);
+    for (int sub = 0; sub < C::NSUB_MAX; ++sub) {
+      if (sub < C::NSUB)
+        hopper::tma_load_4d(dk + sub * BK * SWB, mk, bars + stage,
+                            sub * SWE, hk, t * BK, b);
+      if (sub < C::NSUB_V)
+        hopper::tma_load_4d(dv + sub * BK * SWB, mv, bars + stage,
+                            sub * SWE, hk, t * BK, b);
     }
   };
 
@@ -150,16 +166,16 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
   const int col0 = (lane % 4) * 2;
   const int wg_first = q0 + wg * 64, wg_last = wg_first + 63;
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
   hopper::mbar_wait(qbar, 0);
   for (int it = 0; it < n_t; ++it) {
     const int t = t_lo + it, st = it % C::STAGES, k0 = t * BK;
-    const unsigned char* sK = sKV + st * 2 * C::KV_BYTES;
-    const unsigned char* sV = sK + C::KV_BYTES;
+    const unsigned char* sK = sKV + st * KV_STAGE;
+    const unsigned char* sV = sK + C::K_BYTES;
     hopper::mbar_wait(bars + st, (it / C::STAGES) & 1);
 
     // a tile wholly above this warpgroup's diagonal, or left of its
@@ -225,7 +241,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
         l[r] += p;
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
       // ---- P to bf16 A fragments: k-step j covers columns 16j .. 16j + 15
       uint32_t pa[BK / 16][4];
@@ -238,14 +254,14 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
           pa[j][x] = *reinterpret_cast<const uint32_t*>(&v);
         }
 
-      // ---- O += P V; V is [BK rows][D] in column sub-tiles of SWE
+      // ---- O += P V; V is [BK rows][DV] in column sub-tiles of SWE
       hopper::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
         const uint64_t db = hopper::make_desc(
             hopper::smem_addr(sV + j * 16 * SWB), BK * SWB, 8 * SWB,
             C::LAYOUT);
-        hopper::wgmma_rs_tb<D>(acc, pa[j], db, 1);
+        hopper::wgmma_rs_tb<DV>(acc, pa[j], db, 1);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -276,7 +292,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     if (qi >= Sq) continue;
     __nv_bfloat16* ob = o + b * os.b + qi * os.s + h * os.h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int c = 8 * j + col0;
       ob[c * os.d] = __float2bfloat16(acc[4 * j + 2 * r] * l[r]);
       ob[(c + 1) * os.d] = __float2bfloat16(acc[4 * j + 2 * r + 1] * l[r]);
@@ -284,7 +300,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, float* lse, const Strides4& qs,
                         const Strides4& ks, const Strides4& vs,
@@ -292,21 +308,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int Hkv, int Sq, int Skv, int causal, int window,
                         float scale, int block_q, int block_k,
                         cudaStream_t stream) {
-  using C = Bf16Cfg<D>;
+  using C = Bf16Cfg<D, DV>;
   if (block_q != C::BQ || block_k != C::BK) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
   if (!hopper::encode_bshd_bf16(maps, q, qs, B, Sq, H, D, C::BQ, C::SWB) ||
       !hopper::encode_bshd_bf16(maps + 1, k, ks, B, Skv, Hkv, D, C::BK,
                                 C::SWB) ||
-      !hopper::encode_bshd_bf16(maps + 2, v, vs, B, Skv, Hkv, D, C::BK,
+      !hopper::encode_bshd_bf16(maps + 2, v, vs, B, Skv, Hkv, DV, C::BK,
                                 C::SWB))
     return cudaErrorInvalidValue;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err = hopper::allow_smem(
-      reinterpret_cast<const void*>(flash_bf16<D>), C::SMEM, smem_set);
+      reinterpret_cast<const void*>(flash_bf16<D, DV>), C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_bf16<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_bf16<D, DV><<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), os, lse,
       H / Hkv, Sq, Skv, causal, window, scale * LOG2E);
   return cudaGetLastError();
@@ -499,7 +515,9 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  lse, when not null (bf16 only),
+// dtype: 0 = float32, 1 = bfloat16.  D is the head size of q and k, DV
+// that of v and o: equal, or (bf16 only) 192 and 128.  lse, when not
+// null (bf16 only),
 // receives each row's log-sum-exp of the scaled logits as fp32 [B, H, Sq]
 // (natural base, +inf where no key is visible), for the backward.
 // Strides are in elements, in the [B, S, H, D] order of each tensor; bf16
@@ -508,7 +526,8 @@ const char* repro_error_string(int code) {
 // plan and must be the tiles this library was built with for (dtype, D).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, float* lse, int dtype, int B, int H,
-                        int Hkv, int Sq, int Skv, int D, long long qsb,
+                        int Hkv, int Sq, int Skv, int D, int DV,
+                        long long qsb,
                         long long qss, long long qsh, long long qsd,
                         long long ksb, long long kss, long long ksh,
                         long long ksd, long long vsb, long long vss,
@@ -523,14 +542,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   qs, ks, vs, os, B, H, Hkv, Sq, Skv, causal, window, scale, block_q, \
       block_k, st
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && !lse) {
+  if (dtype == 0 && !lse && D == DV) {
     if (D == 32) err = launch_fp32<32>(q, k, v, o, FLASH_ARGS);
     if (D == 64) err = launch_fp32<64>(q, k, v, o, FLASH_ARGS);
     if (D == 128) err = launch_fp32<128>(q, k, v, o, FLASH_ARGS);
   } else if (dtype == 1) {
-    if (D == 32) err = launch_bf16<32>(q, k, v, o, lse, FLASH_ARGS);
-    if (D == 64) err = launch_bf16<64>(q, k, v, o, lse, FLASH_ARGS);
-    if (D == 128) err = launch_bf16<128>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 32 && DV == 32)
+      err = launch_bf16<32, 32>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 64 && DV == 64)
+      err = launch_bf16<64, 64>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 128 && DV == 128)
+      err = launch_bf16<128, 128>(q, k, v, o, lse, FLASH_ARGS);
+    if (D == 192 && DV == 128)
+      err = launch_bf16<192, 128>(q, k, v, o, lse, FLASH_ARGS);
   }
 #undef FLASH_ARGS
   return static_cast<int>(err);

@@ -46,6 +46,13 @@
 //    dK and dV sum the whole group in registers, so they need no atomics.
 //    dK takes the softmax scale in the epilogue.
 //  * `flash_bwd_dq`: dQ · scale to bf16, in q's [B, Sq, H, D] layout.
+//  * V's head may be narrower than Q's and K's (`DV` < `D`, latent
+//    attention at (192, 128)): dPᵀ = V·dOᵀ contracts over DV and dV is
+//    DV wide, the rest over D.  There the accumulators dK (96 registers a
+//    thread) and dV (64) leave no room for dQ's 48 beside P and dS, so
+//    dV and dK are waited for before dQ, which each warpgroup computes
+//    as three 32-column pieces of its 96 columns; the shared memory is
+//    226 KB of the 227 a block may take.
 //
 // Reductions in another order: dQ's tiles are added in L2 in the order the
 // blocks reach them, which changes from run to run (fp32: ~1e-7 of a
@@ -62,18 +69,29 @@ namespace {
 using hopper::LOG2E;
 using hopper::Strides4;
 
-template <int D>
+// D: the head size of Q and K; DV: that of V and dO
+template <int D, int DV>
 struct BwdCfg {
+  static_assert((D >= 64) == (DV >= 64), "one swizzle for all tiles");
   static constexpr int BKV = 128;                 // kv rows per block
   static constexpr int BQ = 64;                   // q rows per tile
   static constexpr int THREADS = 256;             // two warpgroups
   static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int SWE = SWB / 2;             // elements per span
-  static constexpr int NSUB = D / SWE;            // column sub-tiles
+  static constexpr int NSUB = D / SWE;            // column sub-tiles, Q / K
+  static constexpr int NSUB_V = DV / SWE;         // column sub-tiles, V / dO
+  static constexpr int NSUB_MAX = NSUB > NSUB_V ? NSUB : NSUB_V;
   static constexpr int LAYOUT = SWB == 128 ? 1 : 2;
   static constexpr int DH = D / 2;                // dQ columns a warpgroup
-  static constexpr int KV_BYTES = BKV * D * 2;    // one of K, V
-  static constexpr int Q_BYTES = BQ * D * 2;      // one of Q, dO
+  // dQ's columns go in pieces of DQN (all at once up to 64)
+  static constexpr int DQN = DH <= 64 ? DH : 32;
+  static constexpr int NPIECE = DH / DQN;
+  static constexpr bool SPLIT = D != DV;          // dK, dV waited before dQ
+  static constexpr int K_BYTES = BKV * D * 2;
+  static constexpr int V_BYTES = BKV * DV * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int DO_BYTES = BQ * DV * 2;
+  static constexpr int STAGE_BYTES = Q_BYTES + DO_BYTES;
   static constexpr int ROW_BYTES = BQ * 4;        // lse2 or delta of a tile
   static constexpr int STAGES = 2;
   static constexpr int DS_BYTES = BKV * BQ * 2;   // dSᵀ, bf16, 128-byte rows
@@ -81,9 +99,10 @@ struct BwdCfg {
   // 1 KB of slack to align the tiles to the swizzle atom; K, V; each
   // stage's Q and dO; dSᵀ; the dQ tile; each stage's lse2 and delta rows;
   // three barriers
-  static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * Q_BYTES +
-                              DS_BYTES + DQ_BYTES + STAGES * 2 * ROW_BYTES +
-                              (STAGES + 1) * 8;
+  static constexpr int SMEM = 1024 + K_BYTES + V_BYTES +
+                              STAGES * STAGE_BYTES + DS_BYTES + DQ_BYTES +
+                              STAGES * 2 * ROW_BYTES + (STAGES + 1) * 8;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -92,17 +111,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // delta and the base-2 log-sum-exp of each (b, h, q) row, and the row of
-// dQ's accumulator set to 0: D / 8 threads a row, 16 bytes of O and of dO
-// each (both with a unit last stride and 16-byte aligned rows) and 32 of
-// the accumulator
-template <int D>
+// dQ's accumulator set to 0: DV / 8 threads a row, 16 bytes of O and of
+// dO each (both with a unit last stride and 16-byte aligned rows) and
+// 4·D / (DV / 8) of the accumulator
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep(const __nv_bfloat16* __restrict__ o, Strides4 os,
                const __nv_bfloat16* __restrict__ dout, Strides4 dos,
                const float* __restrict__ lse, float* __restrict__ aux,
                float* __restrict__ dq_acc, int H, int Sq, int Sq_pad,
                long long rows) {
-  constexpr int TPR = D / 8;   // threads a row
+  constexpr int TPR = DV / 8;   // threads a row
+  constexpr int ZERO4 = D / TPR / 4;   // float4s of dQ a thread zeroes
   const int part = threadIdx.x % TPR;
   const long long row =
       static_cast<long long>(blockIdx.x) * (256 / TPR) + threadIdx.x / TPR;
@@ -112,8 +132,10 @@ flash_bwd_prep(const __nv_bfloat16* __restrict__ o, Strides4 os,
   const int q = static_cast<int>(row % Sq_pad);
   const long long bh = row / Sq_pad;
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
-  float4* zero = reinterpret_cast<float4*>(dq_acc + row * D + part * 8);
-  zero[0] = zero[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* zero =
+      reinterpret_cast<float4*>(dq_acc + row * D + part * (D / TPR));
+#pragma unroll
+  for (int z = 0; z < ZERO4; ++z) zero[z] = make_float4(0.f, 0.f, 0.f, 0.f);
   float acc = 0.f;
   if (q < Sq) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
@@ -139,7 +161,7 @@ flash_bwd_prep(const __nv_bfloat16* __restrict__ o, Strides4 os,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
@@ -150,15 +172,15 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
           __nv_bfloat16* __restrict__ dv, Strides4 dvs, int group, int Sq,
           int Skv, int Sq_pad, int causal, int window, float sl2,
           float scale) {
-  using C = BwdCfg<D>;
+  using C = BwdCfg<D, DV>;
   constexpr int BQ = C::BQ, BKV = C::BKV, SWB = C::SWB, SWE = C::SWE;
-  constexpr int DH = C::DH;
+  constexpr int DH = C::DH, DQN = C::DQN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   unsigned char* sK = smem_raw + ((1024 - (raw & 1023)) & 1023);
-  unsigned char* sV = sK + C::KV_BYTES;
-  unsigned char* sQ = sV + C::KV_BYTES;   // stage s: Q, then dO
-  unsigned char* sDS = sQ + C::STAGES * 2 * C::Q_BYTES;
+  unsigned char* sV = sK + C::K_BYTES;
+  unsigned char* sQ = sV + C::V_BYTES;    // stage s: Q, then dO
+  unsigned char* sDS = sQ + C::STAGES * C::STAGE_BYTES;
   float* sDQ = reinterpret_cast<float*>(sDS + C::DS_BYTES);
   float* sRow = sDQ + BQ * D;             // stage s: lse2, then delta
   uint64_t* bars = reinterpret_cast<uint64_t*>(sRow + C::STAGES * 2 * BQ);
@@ -182,17 +204,19 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
   const CUtensorMap *mq = &tq, *mdo = &tdo;
   auto load_q = [=](int stage, int it) {
     const int h = hk * group + it / n_t, t = t_lo + it % n_t;
-    unsigned char* dq_ = sQ + stage * 2 * C::Q_BYTES;
+    unsigned char* dq_ = sQ + stage * C::STAGE_BYTES;
     unsigned char* ddo = dq_ + C::Q_BYTES;
     float* rows = sRow + stage * 2 * BQ;
     uint64_t* bar = bars + stage;
-    hopper::mbar_expect_tx(bar, 2 * C::Q_BYTES + 2 * C::ROW_BYTES);
+    hopper::mbar_expect_tx(bar, C::STAGE_BYTES + 2 * C::ROW_BYTES);
 #pragma unroll
-    for (int sub = 0; sub < C::NSUB; ++sub) {
-      hopper::tma_load_4d(dq_ + sub * BQ * SWB, mq, bar, sub * SWE, h,
-                          t * BQ, b);
-      hopper::tma_load_4d(ddo + sub * BQ * SWB, mdo, bar, sub * SWE, h,
-                          t * BQ, b);
+    for (int sub = 0; sub < C::NSUB_MAX; ++sub) {
+      if (sub < C::NSUB)
+        hopper::tma_load_4d(dq_ + sub * BQ * SWB, mq, bar, sub * SWE, h,
+                            t * BQ, b);
+      if (sub < C::NSUB_V)
+        hopper::tma_load_4d(ddo + sub * BQ * SWB, mdo, bar, sub * SWE, h,
+                            t * BQ, b);
     }
     const float* src =
         aux + (static_cast<long long>(b) * H + h) * 2 * Sq_pad + t * BQ;
@@ -206,13 +230,15 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0 && n_it > 0) {
-    hopper::mbar_expect_tx(kvbar, 2 * C::KV_BYTES);
+    hopper::mbar_expect_tx(kvbar, C::K_BYTES + C::V_BYTES);
 #pragma unroll
-    for (int sub = 0; sub < C::NSUB; ++sub) {
-      hopper::tma_load_4d(sK + sub * BKV * SWB, &tk, kvbar, sub * SWE, hk,
-                          k0, b);
-      hopper::tma_load_4d(sV + sub * BKV * SWB, &tv, kvbar, sub * SWE, hk,
-                          k0, b);
+    for (int sub = 0; sub < C::NSUB_MAX; ++sub) {
+      if (sub < C::NSUB)
+        hopper::tma_load_4d(sK + sub * BKV * SWB, &tk, kvbar, sub * SWE, hk,
+                            k0, b);
+      if (sub < C::NSUB_V)
+        hopper::tma_load_4d(sV + sub * BKV * SWB, &tv, kvbar, sub * SWE, hk,
+                            k0, b);
     }
     for (int s = 0; s < C::STAGES && s < n_it; ++s) load_q(s, s);
   }
@@ -223,19 +249,18 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
   const int col0 = (lane % 4) * 2;
   const int kw0 = k0 + wg * 64;   // the warpgroup's first kv row
   const int ncol = wg * DH;       // its first dQ column
-  // K's columns ncol .. ncol + DH - 1, read as dQ's B operand
-  const unsigned char* sKq =
-      sK + (ncol / SWE) * BKV * SWB + (ncol % SWE) * 2;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[D / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
 
   if (n_it > 0) hopper::mbar_wait(kvbar, 0);
   for (int it = 0; it < n_it; ++it) {
     const int st = it % C::STAGES;
     const int h = hk * group + it / n_t, q0 = (t_lo + it % n_t) * BQ;
-    const unsigned char* cQ = sQ + st * 2 * C::Q_BYTES;
+    const unsigned char* cQ = sQ + st * C::STAGE_BYTES;
     const unsigned char* cDO = cQ + C::Q_BYTES;
     const float* lse2 = sRow + st * 2 * BQ;
     const float* delta = lse2 + BQ;
@@ -261,7 +286,7 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
     }
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const int sub = kk / (SWE / 16), off = (kk % (SWE / 16)) * 32;
       hopper::wgmma_ss<BQ>(
           dp,
@@ -323,12 +348,12 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
             dsa[j][x];
       }
 
-    // ---- dV += Pᵀ dO, dK += dSᵀ Q; dO and Q are [BQ rows][D], read
-    // N-major in column sub-tiles of SWE
+    // ---- dV += Pᵀ dO, dK += dSᵀ Q; dO and Q are [BQ rows][DV] and
+    // [BQ rows][D], read N-major in column sub-tiles of SWE
     hopper::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j)
-      hopper::wgmma_rs_tb<D>(
+      hopper::wgmma_rs_tb<DV>(
           dv_acc, pa[j],
           hopper::make_desc(hopper::smem_addr(cDO + j * 16 * SWB), BQ * SWB,
                             8 * SWB, C::LAYOUT),
@@ -341,39 +366,58 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
                             8 * SWB, C::LAYOUT),
           1);
     hopper::wgmma_commit();
+    if constexpr (C::SPLIT) {
+      // P and dS leave the registers before dQ's accumulators come
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(dk_acc);
+      hopper::reg_fence(dv_acc);
+    }
 
     hopper::fence_proxy_async();
     if (tid == 0) hopper::bulk_wait_read();   // the last dQ tile has left
     __syncthreads();                          // dSᵀ whole, sDQ free
 
-    // ---- dQ_i[:, ncol .. ncol + DH) = dS K over the block's 128 kv rows
-    float dqp[DH / 2];
+    // ---- dQ_i[:, ncol .. ncol + DH) = dS K over the block's 128 kv rows,
+    // in NPIECE pieces of DQN columns; piece p reads K's columns from
+    // ncol + p·DQN as dQ's B operand
+    float dqp[C::NPIECE][DQN / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) dqp[i] = 0.f;
+    for (int p = 0; p < C::NPIECE; ++p)
+#pragma unroll
+      for (int i = 0; i < DQN / 2; ++i) dqp[p][i] = 0.f;
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      hopper::wgmma_ss_tt<DH>(
-          dqp,
-          hopper::make_desc(hopper::smem_addr(sDS + kk * 16 * 128),
-                            BKV * 128, 8 * 128, 1),
-          hopper::make_desc(hopper::smem_addr(sKq + kk * 16 * SWB),
-                            BKV * SWB, 8 * SWB, C::LAYOUT),
-          1);
+#pragma unroll
+      for (int p = 0; p < C::NPIECE; ++p) {
+        const int c = ncol + p * DQN;
+        const unsigned char* sKq =
+            sK + (c / SWE) * BKV * SWB + (c % SWE) * 2;
+        hopper::wgmma_ss_tt<DQN>(
+            dqp[p],
+            hopper::make_desc(hopper::smem_addr(sDS + kk * 16 * 128),
+                              BKV * 128, 8 * 128, 1),
+            hopper::make_desc(hopper::smem_addr(sKq + kk * 16 * SWB),
+                              BKV * SWB, 8 * SWB, C::LAYOUT),
+            1);
+      }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();   // dQ, and this tile's dV and dK
-    hopper::reg_fence(dqp);
+#pragma unroll
+    for (int p = 0; p < C::NPIECE; ++p) hopper::reg_fence(dqp[p]);
     hopper::reg_fence(dk_acc);
     hopper::reg_fence(dv_acc);
 
     // the tile row-major, [BQ][D] fp32, as dq_acc holds it
 #pragma unroll
-    for (int i = 0; i < DH / 2; i += 2) {
-      const int r = row_in + 8 * ((i / 2) % 2);
-      const int c = ncol + 8 * (i / 4) + col0;
-      *reinterpret_cast<float2*>(sDQ + r * D + c) =
-          make_float2(dqp[i], dqp[i + 1]);
-    }
+    for (int p = 0; p < C::NPIECE; ++p)
+#pragma unroll
+      for (int i = 0; i < DQN / 2; i += 2) {
+        const int r = row_in + 8 * ((i / 2) % 2);
+        const int c = ncol + p * DQN + 8 * (i / 4) + col0;
+        *reinterpret_cast<float2*>(sDQ + r * D + c) =
+            make_float2(dqp[p][i], dqp[p][i + 1]);
+      }
     hopper::fence_proxy_async();
     __syncthreads();   // the dQ tile whole; this stage's Q and dO consumed
     if (tid == 0) {
@@ -395,19 +439,22 @@ flash_bwd(const __grid_constant__ CUtensorMap tq,
     __nv_bfloat16* kr = dk + b * dks.b + kpos * dks.s + hk * dks.h;
     __nv_bfloat16* vr = dv + b * dvs.b + kpos * dvs.s + hk * dvs.h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < (D > DV ? D : DV) / 8; ++j) {
       const int c = 8 * j + col0;
-      *reinterpret_cast<__nv_bfloat162*>(kr + c) = __floats2bfloat162_rn(
-          dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vr + c) = __floats2bfloat162_rn(
-          dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      if (j < D / 8)
+        *reinterpret_cast<__nv_bfloat162*>(kr + c) = __floats2bfloat162_rn(
+            dk_acc[4 * j + 2 * r] * scale,
+            dk_acc[4 * j + 2 * r + 1] * scale);
+      if (j < DV / 8)
+        *reinterpret_cast<__nv_bfloat162*>(vr + c) = __floats2bfloat162_rn(
+            dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
 // dq[b, q, h, :] = bf16(scale · dq_acc[b, h, q, :]), 8 columns a thread,
-// in dq's order (contiguous)
-template <int D>
+// in dq's order (contiguous); DV only names the instantiation
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
              int H, int Sq, int Sq_pad, float scale, long long n8) {
@@ -432,13 +479,13 @@ flash_bwd_dq(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bwd(const void* const* t, const Strides4* st,
                        const float* lse, float* aux, float* dq_acc, int B,
                        int H, int Hkv, int Sq, int Skv, int Sq_pad,
                        int causal, int window, float scale, int block_q,
                        int block_kv, cudaStream_t stream) {
-  using C = BwdCfg<D>;
+  using C = BwdCfg<D, DV>;
   if (block_q != C::BQ || block_kv != C::BKV) return cudaErrorInvalidValue;
   if (Sq_pad % C::BQ || Sq_pad < Sq || Sq_pad - Sq >= C::BQ)
     return cudaErrorInvalidValue;
@@ -451,8 +498,8 @@ cudaError_t launch_bwd(const void* const* t, const Strides4* st,
       st[5].b != static_cast<long long>(Sq) * H * D)
     return cudaErrorInvalidValue;
   const long long prep_rows = static_cast<long long>(B) * H * Sq_pad;
-  const long long per_block = 256 / (D / 8);
-  flash_bwd_prep<D><<<static_cast<unsigned>((prep_rows + per_block - 1) /
+  const long long per_block = 256 / (DV / 8);
+  flash_bwd_prep<D, DV><<<static_cast<unsigned>((prep_rows + per_block - 1) /
                                             per_block),
                       256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(t[3]), st[3],
@@ -470,18 +517,18 @@ cudaError_t launch_bwd(const void* const* t, const Strides4* st,
                                 C::SWB) ||
       !hopper::encode_bshd_bf16(maps + 1, t[1], st[1], B, Skv, Hkv, D,
                                 C::BKV, C::SWB) ||
-      !hopper::encode_bshd_bf16(maps + 2, t[2], st[2], B, Skv, Hkv, D,
+      !hopper::encode_bshd_bf16(maps + 2, t[2], st[2], B, Skv, Hkv, DV,
                                 C::BKV, C::SWB) ||
-      !hopper::encode_bshd_bf16(maps + 3, t[4], st[4], B, Sq, H, D, C::BQ,
+      !hopper::encode_bshd_bf16(maps + 3, t[4], st[4], B, Sq, H, DV, C::BQ,
                                 C::SWB))
     return cudaErrorInvalidValue;
 
   static std::atomic<uint64_t> smem_set{0};
-  err = hopper::allow_smem(reinterpret_cast<const void*>(flash_bwd<D>),
+  err = hopper::allow_smem(reinterpret_cast<const void*>(flash_bwd<D, DV>),
                            C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Skv + C::BKV - 1) / C::BKV, Hkv, B);
-  flash_bwd<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_bwd<D, DV><<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], aux, dq_acc,
       static_cast<__nv_bfloat16*>(const_cast<void*>(t[6])), st[6],
       static_cast<__nv_bfloat16*>(const_cast<void*>(t[7])), st[7], H / Hkv,
@@ -491,7 +538,7 @@ cudaError_t launch_bwd(const void* const* t, const Strides4* st,
 
   const long long n8 = static_cast<long long>(B) * Sq * H * D / 8;
   const long long blocks = (n8 + 255) / 256;
-  flash_bwd_dq<D><<<static_cast<unsigned>(blocks < 132 * 16 ? blocks
+  flash_bwd_dq<D, DV><<<static_cast<unsigned>(blocks < 132 * 16 ? blocks
                                                             : 132 * 16),
                     256, 0, stream>>>(
       dq_acc, static_cast<__nv_bfloat16*>(const_cast<void*>(t[5])), H, Sq,
@@ -507,9 +554,10 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// bf16 q [B, Sq, H, D], k / v [B, Skv, Hkv, D], the forward's out and the
-// gradient dout [B, Sq, H, D], its lse fp32 [B, H, Sq]; writes dq, dk, dv
-// (dk and dv [B, Skv, Hkv, D] with a unit last stride).  `strides` holds
+// bf16 q / k [B, S, H(kv), D], v [B, Skv, Hkv, DV], the forward's out and
+// the gradient dout [B, Sq, H, DV], its lse fp32 [B, H, Sq]; writes dq,
+// dk, dv (dk and dv [B, Skv, Hkv, D | DV] with a unit last stride); D and
+// DV equal, or 192 and 128.  `strides` holds
 // 8 x 4 element strides in the [B, S, H, D] order of q, k, v, out, dout,
 // dq, dk, dv; q, k, v and dout are read by TMA (unit last stride, 16-byte
 // aligned base and strides).  aux: fp32 scratch [B, H, 2, Sq_pad]; dq_acc:
@@ -520,7 +568,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const float* lse, const void* dout,
                         float* aux, float* dq_acc, void* dq, void* dk,
                         void* dv, int B, int H, int Hkv, int Sq, int Skv,
-                        int D, int Sq_pad, const long long* strides,
+                        int D, int DV, int Sq_pad, const long long* strides,
                         int causal, int window, float scale, int block_q,
                         int block_kv, void* stream) {
   const void* t[8] = {q, k, v, out, dout, dq, dk, dv};
@@ -533,9 +581,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   t, st, lse, aux, dq_acc, B, H, Hkv, Sq, Skv, Sq_pad, causal, window, \
       scale, block_q, block_kv, s
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 32) err = launch_bwd<32>(BWD_ARGS);
-  if (D == 64) err = launch_bwd<64>(BWD_ARGS);
-  if (D == 128) err = launch_bwd<128>(BWD_ARGS);
+  if (D == 32 && DV == 32) err = launch_bwd<32, 32>(BWD_ARGS);
+  if (D == 64 && DV == 64) err = launch_bwd<64, 64>(BWD_ARGS);
+  if (D == 128 && DV == 128) err = launch_bwd<128, 128>(BWD_ARGS);
+  if (D == 192 && DV == 128) err = launch_bwd<192, 128>(BWD_ARGS);
 #undef BWD_ARGS
   return static_cast<int>(err);
 }

@@ -13,6 +13,10 @@ must have a unit last stride and 16-byte aligned base and strides
 model's views, and slices of a fused projection, pass.  The backward also
 reads ``out`` and ``dout`` 16 bytes at a time and copies either once if it
 cannot (an expanded gradient, say).
+
+V's head may be narrower than q's and k's: the bf16 kernels are also built
+at (192, 128), latent attention's (MLA) 128 + 64 rotary dims scored and 128
+summed; the scale stays 1/sqrt(q's head size).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ bwd_launches = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# (q / k head size, v head size) of the bf16 kernels; fp32 takes HEAD_DIMS
+BF16_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 @functools.cache
@@ -37,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [P] * 5 + [I] * 7 + [LL] * 16 + [I, I, ctypes.c_float, I, I, P])
+        [P] * 5 + [I] * 8 + [LL] * 16 + [I, I, ctypes.c_float, I, I, P])
     lib.flash_attention_fwd.restype = I
     return lib
 
@@ -47,7 +53,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
-        [P] * 11 + [I] * 7 + [P, I, I, ctypes.c_float, I, I, P])
+        [P] * 11 + [I] * 8 + [P, I, I, ctypes.c_float, I, I, P])
     lib.flash_attention_bwd.restype = I
     return lib
 
@@ -98,12 +104,28 @@ def tma_view_problem(shape: Sequence[int], strides: Sequence[int],
     return None
 
 
+def _head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               what: str) -> tuple:
+    """(D, DV) of q, k [.., D] and v [.., DV], checked against the kernels
+    built: ``BF16_DIMS`` in bf16, ``HEAD_DIMS`` (D == DV) in fp32."""
+    b, d, dv = q.shape[0], q.shape[3], v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    built = BF16_DIMS if q.dtype == torch.bfloat16 else \
+        tuple((h, h) for h in HEAD_DIMS)
+    if (d, dv) not in built:
+        raise ValueError(f"{what}: head dims (q/k {d}, v {dv}) not in "
+                         f"{list(built)} for {q.dtype}")
+    return d, dv
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         sliding_window: Optional[int] = None,
                         return_lse: bool = False):
-    """q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D], any strides → [B, Sq, H, D]
-    in q's dtype.  With ``return_lse`` (bf16 only) also each row's
+    """q: [B, Sq, H, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, DV], any
+    strides → [B, Sq, H, DV] in q's dtype.  With ``return_lse`` (bf16 only) also each row's
     log-sum-exp of the scaled logits, fp32 [B, H, Sq] (+inf where no key
     is visible), which the backward kernel needs."""
     global launches
@@ -123,14 +145,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention_fwd: dtype {q.dtype} not in "
                          f"{list(DTYPES)}")
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     _, skv, hkv, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    d, dv = _head_dims(q, k, v, "flash_attention_fwd")
     if h % hkv:
         raise ValueError(f"flash_attention_fwd: {h} heads over {hkv} kv "
                          "heads")
@@ -143,7 +160,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if why:
                 raise ValueError(f"flash_attention_fwd: {name} cannot be "
                                  f"read by TMA: {why}")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if out.numel() == 0:
@@ -155,7 +172,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            DTYPES[q.dtype], b, h, hkv, sq, skv, d,
+            DTYPES[q.dtype], b, h, hkv, sq, skv, d, dv,
             *q.stride(), *k.stride(), *v.stride(), *out.stride(),
             int(causal), sliding_window or 0, 1.0 / np.sqrt(d),
             tiles.block_q, tiles.block_k, stream)
@@ -182,16 +199,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} is "
                              f"{t.dtype} on {t.device}; the kernel takes "
                              "bf16 on q's device")
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     _, skv, hkv, _ = k.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
-            or out.shape != q.shape or dout.shape != q.shape:
+    d, dv = _head_dims(q, k, v, "flash_attention_bwd")
+    if out.shape != (b, sq, h, dv) or dout.shape != out.shape:
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)} out "
-                         f"{tuple(out.shape)} dout {tuple(dout.shape)}")
-    if d not in HEAD_DIMS or h % hkv:
-        raise ValueError(f"flash_attention_bwd: head dim {d}, {h} heads "
-                         f"over {hkv}")
+                         f"v {tuple(v.shape)} out {tuple(out.shape)} dout "
+                         f"{tuple(dout.shape)}")
+    if h % hkv:
+        raise ValueError(f"flash_attention_bwd: {h} heads over {hkv}")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
@@ -212,9 +228,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dout = dout.contiguous()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv_ = torch.empty((b, skv, hkv, dv), dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return dq.zero_(), dk.zero_(), dv_.zero_()
     tiles = plan_bwd(b, sq, skv, hkv)
     aux = torch.empty((b, h, 2, tiles.sq_pad), dtype=torch.float32,
                       device=q.device)
@@ -222,17 +238,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq_acc = torch.empty((b, h, tiles.sq_pad, d), dtype=torch.float32,
                          device=q.device)
     strides = (ctypes.c_longlong * 32)(*(
-        st for t in (q, k, v, out, dout, dq, dk, dv) for st in t.stride()))
+        st for t in (q, k, v, out, dout, dq, dk, dv_) for st in t.stride()))
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), aux.data_ptr(),
-            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, hkv, sq, skv, d, tiles.sq_pad, strides, int(causal),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+            b, h, hkv, sq, skv, d, dv, tiles.sq_pad, strides, int(causal),
             sliding_window or 0, 1.0 / np.sqrt(d), tiles.block_q,
             tiles.block_kv, stream)
     _build.check(lib, code, "flash_attention_bwd")
     bwd_launches += 1
-    return dq, dk, dv
+    return dq, dk, dv_

@@ -3,7 +3,9 @@
 Same function and conventions as the CUDA kernels: fp32 logits and softmax,
 masked logits -1e30 with weight 0, denominator clamped at 1e-30 (a row
 with no visible key gives 0), output in q's dtype.  CPU tensors take the
-forward, and the card's kernels are held against both.
+forward, and the card's kernels are held against both.  v's head size may
+differ from q's and k's (latent attention: 192 scored, 128 summed); the
+scale is 1/sqrt(q's head size).
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sliding_window: Optional[int] = None,
                     return_lse: bool = False):
-    """q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D] with H % Hkv == 0.  With
+    """q: [B, Sq, H, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, DV] with
+    H % Hkv == 0 → [B, Sq, H, DV].  With
     ``return_lse`` also each row's log-sum-exp of the scaled logits over
     its visible keys, fp32 [B, H, Sq], +inf where none is visible (so that
     exp(logit - lse) gives such a row weight 0), as the forward kernel
@@ -56,7 +59,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(logits - m) * mask
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / denom, v.float())
-    out = out.reshape(b, sq, h, d).to(q.dtype)
+    out = out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
     if not return_lse:
         return out
     seen = mask.any(dim=-1)
@@ -73,15 +76,15 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta), then dQ = scale · dS K, dK = scale · dSᵀ Q, dV = Pᵀ dO.
     Returns (dq, dk, dv) in the dtypes of q, k, v."""
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     scale = 1.0 / np.sqrt(d)
     mask = _mask(sq, skv, causal, sliding_window, q.device)
     qg, logits = _logits(q, k, mask)
     lse_g = lse.float().reshape(b, hkv, g, sq, 1)
     p = torch.exp(logits - lse_g) * mask               # [b, hkv, g, q, k]
-    dog = dout.reshape(b, sq, hkv, g, d).float()
-    og = out.reshape(b, sq, hkv, g, d).float()
+    dog = dout.reshape(b, sq, hkv, g, dv).float()
+    og = out.reshape(b, sq, hkv, g, dv).float()
     delta = (dog * og).sum(-1).permute(0, 2, 3, 1)     # [b, hkv, g, q]
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
     ds = p * (dp - delta[..., None])

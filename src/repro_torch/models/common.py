@@ -50,6 +50,8 @@ class P:
                                     # neg_ones | neg_large | eps
     scale: float = 1.0
     dtype: Optional[str] = None     # override the config param_dtype
+    trainable: bool = True          # False: the train step leaves it as
+                                    # it is (no gradient step, no decay)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -65,7 +67,7 @@ def padded_vocab(cfg) -> int:
 def stacked(n_layers: int, sub: Dict[str, P]) -> Dict[str, P]:
     """Add a leading "layers" axis to every P in a per-layer schema."""
     return {k: P((n_layers,) + p.shape, ("layers",) + p.axes, init=p.init,
-                 scale=p.scale, dtype=p.dtype)
+                 scale=p.scale, dtype=p.dtype, trainable=p.trainable)
             for k, p in sub.items()}
 
 

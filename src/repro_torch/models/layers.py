@@ -21,6 +21,7 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import trace
 from ..parallel.sharding import logical_constraint as lc
 from ..parallel.sharding import (map_shards, placements, redistribute,
                                  shard_dims, spec_for, weight_for)
@@ -189,7 +190,7 @@ def _attend(q, k, v, qpos, causal, sliding_window):
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(b, sq, h, d)
+    return out.reshape(b, sq, h, v.shape[-1])
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -399,6 +400,37 @@ def gqa_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     return attn_out(params, attn, cfg, rules), (k_cache, v_cache, key_pos)
 
 
+def mla_block(params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              rules=None) -> torch.Tensor:
+    """Pre-norm multi-head latent attention (DeepSeek-V2/V3, no query
+    LoRA) over a full sequence at positions [B|1, S]; ``cfg.mla`` holds
+    its sizes.  q = y·W_q as H heads of nope + rope dims; [c_kv | k_rope]
+    = y·W_kva; c_kv normed with its own scale and lifted by W_kvb to
+    [k_nope | v] per head; rotary (half-split) on each head's q_rope and on
+    the one k_rope that every head shares.  Causal attention of Q, K over
+    nope + rope dims (scale 1/sqrt of that) and V of ``v_dim``, then W_o.
+    Under ``attn_impl`` "pallas" the flash kernel runs at those two head
+    sizes.  No decode: a latent cache is not built."""
+    dt = to_dtype(cfg.compute_dtype)
+    a, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    y = rms_norm(x, params["ln"], cfg.norm_eps)
+    q_nope, q_rope = linear(y, params["wq"], dt).view(
+        b, s, h, a.qk_dim).split([a.qk_nope, a.qk_rope], dim=-1)
+    c_kv, k_rope = linear(y, params["wkva"], dt).split(
+        [a.kv_rank, a.qk_rope], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_ln"], a.kv_norm_eps)
+    k_nope, v = linear(c_kv, params["wkvb"], dt).view(
+        b, s, h, a.qk_nope + a.v_dim).split([a.qk_nope, a.v_dim], dim=-1)
+    k_rope = apply_rope(k_rope.view(b, s, 1, a.qk_rope), positions,
+                        cfg.rope_theta)
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
+                  dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, a.qk_rope)], dim=-1)
+    attn = attention(q, k, v, causal=True, impl=cfg.attn_impl, rules=rules)
+    return attn_out(params, attn, cfg, rules)
+
+
 # ------------------------------------------------------------------- MLPs
 def swiglu(params, x: torch.Tensor, cfg, rules=None,
            pre_normed: bool = False) -> torch.Tensor:
@@ -427,11 +459,26 @@ def gelu_mlp(params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------- MoE
-def moe_route(router: torch.Tensor, flat: torch.Tensor, m):
-    """Router of a top-k MoE layer, in fp32: softmax over the real
-    experts, the top k renormalised, and the Switch load-balancing loss.
-    flat: [T, d].  Returns (probs [T, experts], top_p [T, k],
-    top_e [T, k], aux)."""
+def moe_route(router: torch.Tensor, flat: torch.Tensor, m,
+              bias: Optional[torch.Tensor] = None, rows: int = 1):
+    """Router of a top-k MoE layer, in fp32.  flat: [T, d], ``rows``
+    sequences of T / rows tokens each.  Returns (probs [T, experts],
+    top_p [T, k], top_e [T, k], aux).
+
+    ``m.scoring`` "softmax" (olmoe, granite): softmax over the real
+    experts, the top k renormalised, the Switch load-balancing loss.
+    "sigmoid" (DeepSeek-V3): scores s = sigmoid of the logits, the top k
+    chosen by s + ``bias`` (the correction bias, which only selects),
+    weighted by their s over its sum × ``m.routed_scale``, and the
+    sequence-wise balance loss (`seq_balance_loss`); probs are s."""
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(flat.float() @ router.float())
+        top_e = torch.topk(scores + bias.float(), m.top_k, dim=-1).indices
+        top_p = scores.gather(-1, top_e)
+        top_p = top_p / (top_p.sum(dim=-1, keepdim=True) + 1e-20) \
+            * m.routed_scale
+        return scores, top_p, top_e, seq_balance_loss(scores, top_e, m,
+                                                      rows)
     probs = torch.softmax(flat.float() @ router.float(), dim=-1)
     top_p, top_e = torch.topk(probs, m.top_k, dim=-1)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
@@ -439,6 +486,25 @@ def moe_route(router: torch.Tensor, flat: torch.Tensor, m):
     aux = m.num_experts * (probs.mean(dim=0) * ce).sum() \
         * m.router_aux_weight
     return probs, top_p, top_e, aux
+
+
+def seq_balance_loss(scores: torch.Tensor, top_e: torch.Tensor, m,
+                     rows: int) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance loss: for each of the ``rows``
+    sequences of S tokens, f_i = E / (k·S) × the choices of expert i and
+    P_i = the mean over its tokens of s_i / Σ_j s_j; α Σ_i f_i P_i
+    (α = ``m.router_aux_weight``), averaged over the sequences.
+    scores [T, E], top_e [T, k]."""
+    t, e = scores.shape
+    s = t // rows
+    counts = torch.zeros((rows, e), dtype=torch.float32,
+                         device=scores.device).scatter_add_(
+        1, top_e.reshape(rows, s * m.top_k),
+        torch.ones((rows, s * m.top_k), dtype=torch.float32,
+                   device=scores.device))
+    f = counts * (e / (m.top_k * s))
+    p = (scores / scores.sum(dim=-1, keepdim=True)).view(rows, s, e).mean(1)
+    return m.router_aux_weight * (f * p).sum(dim=-1).mean()
 
 
 def moe_capacity(n_tok: int, m) -> int:
@@ -476,6 +542,19 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
     weight in the combine.  The expert products are batched over the
     padded experts, whose weights no choice reaches.
 
+    DeepSeek-V3's layer (`DeepSeekMoEConfig`): sigmoid routing with the
+    correction bias ``params["router_bias"]`` (`moe_route`), shared
+    experts (``shared_gate``, ``shared_up``, ``shared_down``) on every
+    token, and a held share: the weights are those of experts
+    [``held_first``, ``held_first + held``) of the router's, and only
+    choices routed to them are dispatched, computed and combined (the
+    mechanism of a mesh's expert split, with one rank's ids).  Capacity
+    and slots are counted over all the router's experts, so the shares of
+    a layer add up to the whole.  While tracing, spans ``moe.route``
+    (counts ``choices``, and as tensors on the card ``held_choices`` and
+    ``dropped_choices``: held but past capacity), ``moe.dispatch``,
+    ``moe.experts``, ``moe.combine``, ``moe.shared`` time the parts.
+
     On a mesh the capacity, slots and drops are those of the call's
     global tokens, as in JAX; the flattened tokens and the output keep
     the batch's placements (their gradients too), and the dispatch, the
@@ -512,45 +591,69 @@ def moe_block(params, x: torch.Tensor, cfg, rules=None):
     # when a batch shard holds fewer rows than that axis has ranks
     y = lc(y, ("batch", None, "act_embed"), rules)
     flat = lc(y.reshape(n_tok, d), ("batch", "act_embed"), rules)
-    probs, top_p, top_e, aux = moe_route(params["router"], flat, m)
-    capacity = moe_capacity(n_tok, m)
-    flat_e = top_e.reshape(-1)                            # [T·k]
-    slot = moe_slots(top_e, m.e_pad)
-    keep = slot < capacity
+    with trace.span("moe.route", device=True,
+                    choices=n_tok * m.top_k) as sp:
+        probs, top_p, top_e, aux = moe_route(
+            params["router"], flat, m, params.get("router_bias"), rows=b)
+        capacity = moe_capacity(n_tok, m)
+        flat_e = top_e.reshape(-1)                        # [T·k]
+        slot = moe_slots(top_e, m.e_pad)
+        keep = slot < capacity
+        if sp is not trace.OFF:
+            held = (flat_e >= m.held_first) \
+                & (flat_e < m.held_first + m.n_held)
+            sp["held_choices"] = held.sum()
+            sp["dropped_choices"] = (held & ~keep).sum()
     if ROUTE_LOG is not None:
         ROUTE_LOG.append({"probs": probs.detach(), "top_e": top_e,
                           "keep": keep})
     e_idx = torch.where(keep, flat_e, m.e_pad)            # overflow row
     s_idx = torch.where(keep, slot, 0)
-    experts, tok, exp, by_tok, by_exp = _moe_shards(flat, m.e_pad, rules)
-    expert_in = _unstack(map_shards(
-        functools.partial(_dispatch, k=m.top_k, capacity=capacity, dt=dt),
-        (flat, e_idx, s_idx, experts), (tok, tok, tok, exp), (by_tok,)))
-    expert_in = lc(expert_in, ("experts", None, "act_embed"), rules)
+    experts, tok, exp, by_tok, by_exp = _moe_shards(flat, m, rules)
+    with trace.span("moe.dispatch", device=True):
+        expert_in = _unstack(map_shards(
+            functools.partial(_dispatch, k=m.top_k, capacity=capacity,
+                              dt=dt),
+            (flat, e_idx, s_idx, experts), (tok, tok, tok, exp),
+            (by_tok,)))
+        expert_in = lc(expert_in, ("experts", None, "act_embed"), rules)
     ffn_pl, w_pl = _ffn_shards(expert_in)
-    expert_out = lc(map_shards(
-        _expert_ffn, (expert_in, *(cast(params[n], dt) for n in
-                                   ("w_gate", "w_up", "w_down"))),
-        (ffn_pl, w_pl, w_pl, w_pl), (ffn_pl,), (expert_in.shape,)),
-        ("experts", None, "act_embed"), rules)
-    out = _unstack(map_shards(
-        functools.partial(_combine, k=m.top_k, dt=dt),
-        (expert_out, e_idx, s_idx, top_p.reshape(-1), experts),
-        (exp, tok, tok, tok, exp), (by_exp,)))
-    out = lc(out, ("batch", "act_embed"), rules)
-    return out.reshape(b, s, d), aux
+    with trace.span("moe.experts", device=True):
+        expert_out = lc(map_shards(
+            _expert_ffn, (expert_in, *(cast(params[n], dt) for n in
+                                       ("w_gate", "w_up", "w_down"))),
+            (ffn_pl, w_pl, w_pl, w_pl), (ffn_pl,), (expert_in.shape,)),
+            ("experts", None, "act_embed"), rules)
+    with trace.span("moe.combine", device=True):
+        out = _unstack(map_shards(
+            functools.partial(_combine, k=m.top_k, dt=dt),
+            (expert_out, e_idx, s_idx, top_p.reshape(-1), experts),
+            (exp, tok, tok, tok, exp), (by_exp,)))
+        out = lc(out, ("batch", "act_embed"), rules).reshape(b, s, d)
+    if m.d_shared:
+        with trace.span("moe.shared", device=True):
+            out = out + swiglu({"w_gate": params["shared_gate"],
+                                "w_up": params["shared_up"],
+                                "w_down": params["shared_down"]}, y, cfg,
+                               rules=rules, pre_normed=True)
+    return out, aux
 
 
-def _moe_shards(flat, e_pad: int, rules):
-    """The expert ids [e_pad] and the placements of `_dispatch` and
-    `_combine`: the tokens and their choices split as the batch, the ids
-    as the experts, and the output of each stacked on a new leading dim
-    over the mesh dims that split what it sums (the tokens for the
-    dispatch, the experts for the combine).  Without a mesh, plain ids
-    and no placements."""
-    experts = torch.arange(e_pad, device=flat.device)
+def _moe_shards(flat, m, rules):
+    """The ids of the experts held (all ``m.e_pad``, or ``m``'s held
+    share) and the placements of `_dispatch` and `_combine`: the tokens
+    and their choices split as the batch, the ids as the experts, and the
+    output of each stacked on a new leading dim over the mesh dims that
+    split what it sums (the tokens for the dispatch, the experts for the
+    combine).  Without a mesh, plain ids and no placements; a mesh splits
+    every expert, not a share."""
+    experts = torch.arange(m.held_first, m.held_first + m.n_held,
+                           device=flat.device)
     if rules is None or not isinstance(flat, DTensor):
         return experts, None, None, None, None
+    if m.n_held != m.e_pad:
+        raise NotImplementedError("moe_block: a held share of the experts "
+                                  "on a mesh")
     mesh = flat.device_mesh
     experts = DTensor.from_local(experts, mesh, [Replicate()] * mesh.ndim,
                                  run_check=False)
@@ -618,7 +721,15 @@ def _combine(expert_out, e_idx, s_idx, weight, experts, *, k, dt):
     summed per token.  Returns [1, T, d]: on a mesh, one block per rank
     that splits the experts, summed by the caller."""
     inside, row = _local(e_idx, experts)
-    gathered = expert_out[torch.where(inside, row, 0), s_idx]   # [T·k, d]
+    # one flat index per choice, gathered by `index_select`, whose
+    # backward adds each choice's gradient into its slot with atomics.
+    # Indexing by (row, slot) pairs would sort the choices in backward and
+    # sum each slot's serially, and every choice outside the experts held
+    # (dropped, or another rank's: weight 0) lands on a slot of row 0,
+    # thousands to a slot under a held share
+    n, capacity, d = expert_out.shape
+    gathered = expert_out.reshape(n * capacity, d).index_select(
+        0, torch.where(inside, row, 0) * capacity + s_idx)      # [T·k, d]
     weight = torch.where(inside, weight, 0.0).to(dt)
     tok_idx = torch.arange(e_idx.shape[0], device=e_idx.device) // k
     return torch.zeros((e_idx.shape[0] // k, expert_out.shape[-1]),

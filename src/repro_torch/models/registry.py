@@ -8,13 +8,14 @@ import numpy as np
 import torch
 
 from ..parallel.sharding import abstract_params
-from . import dense, mamba2, moe, whisper, xlstm
+from . import dense, mamba2, mla_moe, moe, whisper, xlstm
 from .common import P, init_params, resolve_device
 
 _MODULES = {
     "dense": dense,
     "vlm": dense,                   # LLaVA backbone = dense + patch proj
     "moe": moe,
+    "mla_moe": mla_moe,             # latent attention, DeepSeek-V3 experts
     "mamba2_hybrid": mamba2,
     "xlstm": xlstm,
     "whisper": whisper,
@@ -53,12 +54,24 @@ class Model:
         return count(self.schema())
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: top-k of the expert FFNs)."""
+        """Params touched per token (MoE: top-k of the expert FFNs held,
+        in the layers that have experts)."""
         m = self.cfg.moe
         if m is None:
             return self.param_count()
-        expert = 3 * self.cfg.d_model * m.d_expert * self.cfg.n_layers
-        return self.param_count() - expert * (m.e_pad - m.top_k)
+        expert = 3 * self.cfg.d_model * m.d_expert \
+            * (self.cfg.n_layers - self.cfg.first_k_dense)
+        return self.param_count() - expert * max(m.n_held - m.top_k, 0)
+
+    def frozen(self) -> frozenset:
+        """Paths ("layers/router_bias") of the leaves that the train step
+        leaves as they are (`P.trainable` False)."""
+        def walk(node, prefix):
+            if isinstance(node, P):
+                return [] if node.trainable else [prefix]
+            return [p for k, v in node.items()
+                    for p in walk(v, f"{prefix}/{k}" if prefix else k)]
+        return frozenset(walk(self.schema(), ""))
 
     def forward(self, params, batch, rules=None) -> torch.Tensor:
         return self.module.forward(params, batch, self.cfg, rules=rules)

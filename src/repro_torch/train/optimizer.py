@@ -50,6 +50,21 @@ def leaves(tree: Any) -> list:
     return [tree]
 
 
+def without(tree: Any, drop: frozenset, prefix: str = "") -> Any:
+    """``tree`` less the leaves at the paths ("layers/router_bias") in
+    ``drop``: new dicts holding the same tensors, or ``tree`` itself
+    where ``drop`` is empty."""
+    if not drop:
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = without(v, drop, f"{prefix}{k}/")
+        elif f"{prefix}{k}" not in drop:
+            out[k] = v
+    return out
+
+
 def unflatten(template: Any, flat: list) -> Any:
     """``template``'s tree (and key order) with the tensors of ``flat``,
     given in `leaves` order."""

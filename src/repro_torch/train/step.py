@@ -3,7 +3,9 @@
 
 `make_train_step` returns (state, batch) -> (state, metrics), with
 optional gradient accumulation over microbatches: activation memory scales
-with batch/accum_steps while the gradient sum stays whole.  The state is
+with batch/accum_steps while the gradient sum stays whole.  The leaves the
+model keeps out of training (`Model.frozen`: Moonlight's routing bias) are
+left out of the optimizer's trees, so no step or decay reaches them.  The state is
 ``{"params", "opt", "step"}``; the params and moments are updated in place
 and the returned state holds the same tensors.  The metrics are 0-d
 tensors on the card: reading one waits for the step.
@@ -131,14 +133,23 @@ def make_grad_fn(model, hyper: TrainHyper = TrainHyper(),
 def make_train_step(model, hyper: TrainHyper = TrainHyper(),
                     rules=None) -> Callable:
     grad_fn = make_grad_fn(model, hyper, rules)
+    frozen = model.frozen()
+
+    def trained(tree):
+        return opt.without(tree, frozen)
 
     def train_step(state, batch):
         with trace.span("train.step", tokens=batch["tokens"].numel()):
             loss, parts, grads = grad_fn(state["params"], batch)
             with trace.span("train.optimizer", device=True):
-                params, opt_state, om = opt.update(hyper.adamw, grads,
-                                                   state["opt"],
-                                                   state["params"])
+                o = state["opt"]
+                # in place: the returned trees hold the tensors passed
+                _, new, om = opt.update(
+                    hyper.adamw, trained(grads),
+                    opt.OptState(trained(o.m), trained(o.v), o.count),
+                    trained(state["params"]))
+                params, opt_state = state["params"], \
+                    opt.OptState(o.m, o.v, new.count)
         metrics = {"loss": loss, **parts, **om}
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, metrics)

@@ -230,6 +230,52 @@ def test_flash_plain_lse_is_the_rows_logsumexp():
                                rtol=1e-6)
 
 
+def _mla_einsum(q, k, v, causal):
+    """Causal or full softmax(Q·Kᵀ / sqrt(Dqk))·V by a plain einsum, with
+    K/V repeated over each group's query heads: Q, K [.., 192], V [.., 128]
+    (latent attention's 128 + 64 rotary dims scored, 128 summed)."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        sq, skv = q.shape[1], k.shape[1]
+        seen = torch.arange(skv)[None, :] <= torch.arange(sq)[:, None]
+        logits = logits.masked_fill(~seen, -float("inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,causal", [
+    (2, 96, 96, 4, 4, True),
+    (1, 70, 70, 4, 2, True),       # grouped, a ragged tile
+    (1, 50, 90, 4, 1, False),
+    (1, 90, 50, 2, 2, True),       # more queries than keys
+])
+def test_flash_plain_at_unequal_head_dims_matches_einsum(b, sq, skv, h, hkv,
+                                                         causal):
+    """The plain version at latent attention's head sizes (q/k 192, v
+    128), the oracle of the (192, 128) kernels: its forward, and the
+    backward kernel's algorithm (`attention_plain_bwd` from the forward's
+    log-sum-exp), against autograd through an einsum.  fp32: ~1e-6 apart,
+    1e-4 allowed."""
+    rng = np.random.default_rng(21)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+    q, k, v = rnd(b, sq, h, 192), rnd(b, skv, hkv, 192), rnd(b, skv, hkv,
+                                                             128)
+    g = rnd(b, sq, h, 128)
+    out, lse = attention_plain(q, k, v, causal=causal, return_lse=True)
+    inputs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = _mla_einsum(*inputs, causal)
+    assert out.shape == (b, sq, h, 128)
+    _close([out], [want.detach()], 1e-4)
+    got = attention_plain_bwd(q, k, v, out, lse, g, causal=causal)
+    assert [tuple(t.shape) for t in got] == [tuple(q.shape), tuple(k.shape),
+                                             tuple(v.shape)]
+    _close(got, torch.autograd.grad(want, inputs, g), 1e-4)
+
+
 class _FakeCard:
     """The op's kernels replaced by their plain versions, counting what the
     op asked for."""
